@@ -5,11 +5,13 @@ keyword. The device is never picked on its own: it defaults to "cuda" and
 a CUDA request without a card raises. `device="cpu"` runs the plain
 versions of the kernels.
 
-This slice of the port runs the small tier (n < base_ncells) up to a
-padded size of 1024 cells through the serial Ward kernel. The large tier,
-small problems above n_pad 1024 and the reciprocal-NN / bf16 linkage
-backends raise `NotImplementedError`: they come with the next slices
-(ROADMAP.md, Queue 1).
+`sharp` runs both tiers: the small tier (n < base_ncells) on one padded
+block, the large tier as folds of about partition_ncells cells, wMetaC per
+fold and sMetaC across folds. Ward linkage goes through the serial Ward
+kernel up to a padded size of 1024 and through the reciprocal-NN ladder
+with its tail kernel above. What is not ported yet raises
+`NotImplementedError` with its ROADMAP.md entry: several devices
+(`n_devices > 1`), the `pallas_bf16` backend and `sharp_unlimited`.
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ import torch
 
 from sharp_tpu.config import pad_dim, resolve_config
 from sharp_tpu.types import SharpResult
+from sharp_tpu_torch.core.large import sharp_large
 from sharp_tpu_torch.core.pipeline import TestlogProbe, preprocess, sharp_small
-from sharp_tpu_torch.ops.linkage import SERIAL_MAX_N, resolve_linkage_backend
+from sharp_tpu_torch.ops.linkage import resolve_linkage_backend
 from sharp_tpu_torch.utils.prng import resolve_seed
 from sharp_tpu_torch.utils.timers import StageTimer
 
@@ -49,24 +52,30 @@ def sharp(
     cells_axis: int = 0,
     rM: Optional[object] = None,
     testlog_probe: Optional[TestlogProbe] = None,
+    shuffle_perm: Optional[torch.Tensor] = None,
     device="cuda",
     **knobs,
 ) -> SharpResult:
     """Cluster a cells-by-genes expression matrix (~ SHARP(), R/SHARP.R:44).
 
     Accepts the reference knobs as keyword args (`ensize_K`, `reduced_ndim`,
-    `base_ncells`, `N_cluster`, `minN_cluster`, `maxN_cluster`, `sil_thre`,
-    `height_Ntimes`, `prep`, `logflag`, `exp_type`, `rN_seed`, `forview`,
-    ...) with the JAX package's auto-defaults (`sharp_tpu.config`).
+    `base_ncells`, `partition_ncells`, `N_cluster`, `minN_cluster`,
+    `maxN_cluster`, `sil_thre`, `height_Ntimes`, `prep`, `logflag`,
+    `exp_type`, `rN_seed`, `forview`, `linkage_backend`, ...) with the JAX
+    package's auto-defaults (`sharp_tpu.config`), and dispatches the small
+    or the large tier on `base_ncells` as the reference does
+    (R/SHARP.R:251-280).
 
     cells_axis=1 accepts the reference's genes-by-cells orientation.
 
     `rM` injects pre-generated RP matrices (the reference's rM argument,
     R/SHARP.R:541-549): a list of K (genes, p) matrices or one stacked
     (genes, K * p) array, numpy or torch. `testlog_probe` injects the
-    testlog draws (`sharp_tpu_torch.carry.testlog_probe_from_jax`). Callers
-    injecting rM usually also pass prep=False so the gene dimension is not
-    altered under the matrices.
+    testlog draws (`sharp_tpu_torch.carry.testlog_probe_from_jax`) and
+    `shuffle_perm` the large tier's cell reshuffle
+    (`carry.shuffle_perm_from_jax`; the small tier does not reshuffle).
+    Callers injecting rM usually also pass prep=False so the gene dimension
+    is not altered under the matrices.
     """
     dev = resolve_device(device)
     X = np.asarray(X)
@@ -78,19 +87,12 @@ def sharp(
     timer = StageTimer()
     n, g = X.shape
     cfg = resolve_config(n, g, **knobs)
-    if not cfg.is_small:
+    if cfg.n_devices > 1:
         raise NotImplementedError(
-            f"{n} cells >= base_ncells={cfg.base_ncells} takes the large tier "
-            "(fold program, sMetaC, grouped host loop), which is not ported yet "
-            "(ROADMAP.md, Queue 1 'Next slice')"
+            f"n_devices={cfg.n_devices}: folds over several cards are not ported "
+            "yet (ROADMAP.md, Queue 1 item 9, 'parallel/{mesh,sharded,multihost}.py')"
         )
-    n_pad = pad_dim(n)
-    if n_pad > SERIAL_MAX_N:
-        raise NotImplementedError(
-            f"{n} cells pad to {n_pad} > {SERIAL_MAX_N}: that small-tier size "
-            "needs the reciprocal-NN ladder and its tail kernel, which are not "
-            "ported yet (ROADMAP.md, Queue 1 'Next slice')"
-        )
+    n_pad = pad_dim(n) if cfg.is_small else cfg.block_pad
     resolve_linkage_backend(cfg.linkage_backend, n_pad, cfg.hmethod)
     rN_seed = resolve_seed(cfg.rN_seed)
 
@@ -115,16 +117,21 @@ def sharp(
                 "— pass prep=False to keep the gene dimension fixed)"
             )
 
-    return sharp_small(
-        X, cfg, rN_seed, dev, timer, R_all=R_all, testlog_probe=testlog_probe
+    if cfg.is_small:
+        return sharp_small(
+            X, cfg, rN_seed, dev, timer, R_all=R_all, testlog_probe=testlog_probe
+        )
+    return sharp_large(
+        X, cfg, rN_seed, dev, timer, R_all=R_all, testlog_probe=testlog_probe,
+        shuffle_perm=shuffle_perm,
     )
 
 
 def sharp_unlimited(*args, **kwargs) -> SharpResult:
     """Blocked / out-of-core path (~ SHARP_unlimited): not ported yet."""
     raise NotImplementedError(
-        "sharp_unlimited is not ported yet: it needs the large tier and the "
-        "streaming path (ROADMAP.md, Queue 1 item 8, 'io/sparse.py, "
+        "sharp_unlimited is not ported yet: it needs the streaming path "
+        "and the per-block fuse (ROADMAP.md, Queue 1 item 8, 'io/sparse.py, "
         "parallel/streaming.py -> sharp_unlimited')"
     )
 

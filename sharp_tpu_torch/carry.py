@@ -1,9 +1,10 @@
 """Carry the JAX package's random draws into the port.
 
 The system has no trained weights; what fixes a run besides the data are
-its random draws: the stacked ensemble RP matrix and the testlog probe
-(the cell permutation and the fixed-seed probe RP matrix,
-`sharp_tpu/core/pipeline.py:71-81`). `torch.Generator` cannot reproduce
+its random draws: the stacked ensemble RP matrix, the testlog probe (the
+cell permutation and the fixed-seed probe RP matrix,
+`sharp_tpu/core/pipeline.py:71-81`) and, on the large tier, the cell
+reshuffle before the fold partition (`sharp_tpu/core/large.py:428-434`). `torch.Generator` cannot reproduce
 JAX's threefry streams, so a comparison between the two packages makes
 these arrays once (with the JAX package, or with numpy) and hands them to
 the port as numpy arrays through the functions here.
@@ -42,3 +43,13 @@ def testlog_probe_from_jax(
         perm=torch.from_numpy(np.array(perm, dtype=np.int64)).to(device),
         R=torch.from_numpy(np.array(R, dtype=np.float32)).to(device),
     )
+
+
+def shuffle_perm_from_jax(perm: np.ndarray, n: int) -> torch.Tensor:
+    """The large tier's cell reshuffle: `perm` a permutation of the n cells
+    (the JAX package's `jax.random.permutation(shuffle_key(key), n,
+    independent=True)`), as a CPU int64 tensor."""
+    perm = np.asarray(perm)
+    if perm.shape != (n,) or not np.array_equal(np.sort(perm), np.arange(n)):
+        raise ValueError(f"perm must be a permutation of {n} cells, got shape {perm.shape}")
+    return torch.from_numpy(np.array(perm, dtype=np.int64))

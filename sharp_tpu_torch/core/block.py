@@ -1,17 +1,19 @@
-"""Single-block ensemble clustering: project K ways, cluster each.
+"""Ensemble clustering of one block or of a group of folds: project K ways,
+cluster each.
 
 Counterpart of `sharp_tpu/core/block.py`. The reference's per-RP worker
 (R/SHARP.R:554-618: log2, dense RP product, get_opt_hclust) becomes one
-function over a written-out ensemble axis: one product projects all K
-members, the K distance matrices are built in one batch, the K linkages go
-to the serial Ward kernel in one launch and the K cut replays to the
-replay kernel in one launch. Scoring and the rule chain then run per
-member.
+function over written-out fold and ensemble axes: one product projects all
+G folds for all K members, the G*K distance matrices are built in one
+batch, the G*K linkages go to one linkage call (one serial Ward launch, or
+one ladder whose rounds and tail kernel serve every lane) and the G*K cut
+replays to the replay kernel in one launch. Scoring and the rule chain
+then run per member.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -22,16 +24,16 @@ from sharp_tpu_torch.ops.select import linkage, prep_distance, select_cut
 
 
 class BlockEnsembleResult(NamedTuple):
-    labels: torch.Tensor     # (n_pad, K) dense per-member labels; pads at nc_pad-1
-    k_per: torch.Tensor      # (K,) chosen cluster count per member
-    maxsil: torch.Tensor     # (K,) max median silhouette per member
-    mean_proj: torch.Tensor  # (n_pad, p) ensemble-mean projected features (viE block)
+    labels: torch.Tensor     # ([G,] n_pad, K) dense per-member labels; pads at nc_pad-1
+    k_per: torch.Tensor      # ([G,] K) chosen cluster count per member
+    maxsil: torch.Tensor     # ([G,] K) max median silhouette per member
+    mean_proj: torch.Tensor  # ([G,] n_pad, p) ensemble-mean projected features (viE block)
 
 
 def cluster_block_ensemble(
-    X: torch.Tensor,            # (n_pad, genes) raw (not log) expression block
-    real_mask: torch.Tensor,    # (n_pad,) bool
-    n_real: int,
+    X: torch.Tensor,            # ([G,] n_pad, genes) raw (not log) expression
+    real_mask: torch.Tensor,    # ([G,] n_pad) bool
+    n_real: Union[int, Sequence[int]],   # one per fold with a fold axis
     R_all: torch.Tensor,        # (genes, K*p) stacked ensemble RP matrix
     maxN: int,
     log_transform: bool,
@@ -47,25 +49,40 @@ def cluster_block_ensemble(
     hmethod: str = "ward.D",
     height_tail: int = 10,
 ) -> BlockEnsembleResult:
-    n_real, maxN = int(n_real), int(maxN)
-    Xt = torch.log2(1.0 + X) if log_transform else X
-    proj = rp_project_ensemble(Xt, R_all, K=K)                 # (K, n_pad, p)
-    proj = proj * real_mask[None, :, None].to(proj.dtype)
+    """Cluster one block (n_pad, genes), or G folds (G, n_pad, genes) with
+    their masks (G, n_pad) and real counts, K ways each; the results carry
+    the same leading fold axis."""
+    folded = X.dim() == 3
+    Xf = X if folded else X[None]
+    masks = real_mask if folded else real_mask[None]
+    nreal = [int(v) for v in (n_real if folded else [n_real])]
+    G, n_pad, genes = Xf.shape
+    maxN = int(maxN)
 
-    backend = resolve_linkage_backend(linkage_backend, X.shape[0], hmethod)
-    D, D_real, feats_unit = prep_distance(proj, real_mask, symmetric=False)
-    link = linkage(D.contiguous(), backend, hmethod)           # one batched launch
-    cuts = cutree_multi_kernel(                                # one batched launch
-        link.merges, n_real, real_mask, maxN, minN=minN, ncand=ncand, nc_pad=nc_pad
+    Xt = torch.log2(1.0 + Xf) if log_transform else Xf
+    proj = rp_project_ensemble(Xt.reshape(G * n_pad, genes), R_all, K=K)   # (K, G*n_pad, p)
+    p = proj.shape[-1]
+    proj = proj.reshape(K, G, n_pad, p).transpose(0, 1)                     # (G, K, n_pad, p)
+    proj = proj * masks[:, None, :, None].to(proj.dtype)
+    lane_mask = masks.repeat_interleave(K, dim=0)                           # (G*K, n_pad)
+    lane_nreal = [nr for nr in nreal for _ in range(K)]
+
+    backend = resolve_linkage_backend(linkage_backend, n_pad, hmethod)
+    D, D_real, feats_unit = prep_distance(proj.reshape(G * K, n_pad, p), lane_mask, symmetric=False)
+    link = linkage(D.contiguous(), backend, hmethod)           # one call for all lanes
+    del D
+    cuts = cutree_multi_kernel(                                # one launch for all lanes
+        link.merges, lane_nreal, lane_mask, maxN, minN=minN, ncand=ncand, nc_pad=nc_pad
     )
 
     labels, k_per, maxsil = [], [], []
-    for m in range(K):
+    for lane in range(G * K):
+        g = lane // K
         res = select_cut(
-            D_real[m], feats_unit[m],
-            LinkageResult(link.merges[m], link.heights[m]),
-            CutForest(cuts.labels[m], cuts.k[m], cuts.valid[m]),
-            real_mask, n_real, maxN,
+            D_real[lane], feats_unit[lane],
+            LinkageResult(link.merges[lane], link.heights[lane]),
+            CutForest(cuts.labels[lane], cuts.k[lane], cuts.valid[lane]),
+            masks[g], nreal[g], maxN,
             minN=minN, ncand=ncand, nc_pad=nc_pad, sil_thre=sil_thre,
             height_Ntimes=height_Ntimes, N_cluster=indN_cluster,
             height_tail=height_tail,
@@ -73,9 +90,10 @@ def cluster_block_ensemble(
         labels.append(res.labels)
         k_per.append(res.k)
         maxsil.append(res.maxsil)
-    return BlockEnsembleResult(
-        labels=torch.stack(labels, dim=1),
-        k_per=torch.stack(k_per),
-        maxsil=torch.stack(maxsil),
-        mean_proj=proj.mean(dim=0),
+    out = BlockEnsembleResult(
+        labels=torch.stack(labels).reshape(G, K, n_pad).transpose(1, 2),
+        k_per=torch.stack(k_per).reshape(G, K),
+        maxsil=torch.stack(maxsil).reshape(G, K),
+        mean_proj=proj.mean(dim=1),
     )
+    return out if folded else BlockEnsembleResult(*(x[0] for x in out))

@@ -1,0 +1,107 @@
+"""The per-fold program: ensemble cluster + wMetaC + centroid summary.
+
+Counterpart of `sharp_tpu/core/fold.py`. A fold exports only O(clusters x
+p) summary data (labels, centroid sums, counts, x0 votes): the cross-fold
+merge traffic of the reference's design (SURVEY.md §5.7). The program
+takes a group of G folds at once: one ensemble call covers the G*K members
+(one projection, one linkage call, one cut-replay launch), then wMetaC runs
+fold by fold.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Union
+
+import torch
+import torch.nn.functional as F
+
+from sharp_tpu.config import SharpConfig
+from sharp_tpu_torch.core.block import cluster_block_ensemble
+from sharp_tpu_torch.core.wmetac import wmetac
+
+
+class FoldSummary(NamedTuple):
+    finalC: torch.Tensor     # ([G,] B) fold-local consensus labels; pads at nc_pad-1
+    n_meta: torch.Tensor     # ([G]) int32
+    cent_sum: torch.Tensor   # ([G,] nc_pad, p) per-cluster centroid sums in mean-RP space
+    counts: torch.Tensor     # ([G,] nc_pad)
+    mean_proj: torch.Tensor  # ([G,] B, p)
+    x0: torch.Tensor         # ([G,] B, nc_pad)
+    k_per: torch.Tensor      # ([G,] K)
+    maxsil: torch.Tensor     # ([G,] K)
+    overflow: torch.Tensor   # ([G]) bool — wMetaC allc_pad budget exceeded (degraded consensus)
+
+
+def _allc_pad(cfg: SharpConfig) -> int:
+    """Static budget for distinct (member, cluster) ids in wMetaC."""
+    exact = cfg.ensize_K * min(cfg.maxN_cluster + 1, cfg.nc_pad - 1)
+    return min(max(64, ((exact + 63) // 64) * 64), 1024)
+
+
+def fold_static_args(cfg: SharpConfig) -> dict:
+    maxN = min(cfg.maxN_cluster, 40)
+    return dict(
+        K=cfg.ensize_K,
+        minN=cfg.minN_cluster,
+        ncand=maxN - cfg.minN_cluster + 1,
+        nc_pad=cfg.nc_pad,
+        allc_pad=_allc_pad(cfg),
+        sil_thre=cfg.sil_thre,
+        height_Ntimes=cfg.height_Ntimes,
+        maxN=maxN,
+        linkage_backend=cfg.linkage_backend,
+        hmethod=cfg.hmethod,
+    )
+
+
+def fold_program(
+    X: torch.Tensor,                       # ([G,] B, genes)
+    mask: torch.Tensor,                    # ([G,] B) bool
+    n_real: Union[int, Sequence[int]],     # one per fold with a fold axis
+    R_all: torch.Tensor,                   # (genes, K*p)
+    log_transform: bool,
+    indN_cluster: Optional[int] = None,
+    *,
+    K: int,
+    minN: int,
+    ncand: int,
+    nc_pad: int,
+    allc_pad: int,
+    sil_thre: float,
+    height_Ntimes: float,
+    maxN: int,
+    linkage_backend: str = "auto",
+    hmethod: str = "ward.D",
+) -> FoldSummary:
+    folded = X.dim() == 3
+    Xf = X if folded else X[None]
+    masks = mask if folded else mask[None]
+    nreal = [int(v) for v in (n_real if folded else [n_real])]
+    blk = cluster_block_ensemble(
+        Xf, masks, nreal, R_all, maxN, log_transform,
+        K=K, minN=minN, ncand=ncand, nc_pad=nc_pad,
+        sil_thre=sil_thre, height_Ntimes=height_Ntimes,
+        indN_cluster=indN_cluster, linkage_backend=linkage_backend, hmethod=hmethod,
+    )
+    fields = {name: [] for name in FoldSummary._fields}
+    for g in range(Xf.shape[0]):
+        wres = wmetac(
+            blk.labels[g], masks[g], nreal[g], maxN,
+            K=K, nc_pad=nc_pad, allc_pad=allc_pad,
+            meta_minN=minN, meta_ncand=ncand,
+            sil_thre=0.0, height_Ntimes=height_Ntimes,
+            hmethod=hmethod, linkage_backend=linkage_backend,
+        )
+        oh = F.one_hot(wres.finalC.long(), nc_pad).to(torch.float32)
+        oh = oh * masks[g][:, None].to(torch.float32)
+        fields["finalC"].append(wres.finalC)
+        fields["n_meta"].append(wres.n_meta.to(oh.device))
+        fields["cent_sum"].append(oh.T @ blk.mean_proj[g])
+        fields["counts"].append(oh.sum(dim=0))
+        fields["x0"].append(wres.x0)
+        fields["overflow"].append(wres.overflow.to(oh.device))
+    out = FoldSummary(
+        **{k: torch.stack(v) for k, v in fields.items() if v},
+        mean_proj=blk.mean_proj, k_per=blk.k_per, maxsil=blk.maxsil,
+    )
+    return out if folded else FoldSummary(*(x[0] for x in out))

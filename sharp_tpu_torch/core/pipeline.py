@@ -16,6 +16,7 @@ import torch
 from sharp_tpu.config import SharpConfig, pad_dim
 from sharp_tpu.types import SharpResult, finalize_labels
 from sharp_tpu_torch.core.block import cluster_block_ensemble
+from sharp_tpu_torch.core.fold import _allc_pad
 from sharp_tpu_torch.core.wmetac import wmetac
 from sharp_tpu_torch.ops.rp import ensemble_rp_matrix, rp_project, ternary_rp_matrix
 from sharp_tpu_torch.ops.select import opt_hclust
@@ -79,6 +80,7 @@ def testlog_decide(
     rN_seed: int,
     sncells: Optional[int] = None,
     probe: Optional[TestlogProbe] = None,
+    device=None,
 ) -> bool:
     """Decide whether to log2-transform by probing a small random subset.
 
@@ -87,15 +89,17 @@ def testlog_decide(
     msil_raw < 0.75 and msil_raw >= 0.95 * msil_log. `probe` injects the
     permutation and probe RP matrix (e.g. the JAX package's, through
     `sharp_tpu_torch.carry`); by default they are drawn from `rN_seed`.
+    The probe runs on `device` (default: X's device); only the probed
+    cells move there.
     """
     n, genes = X.shape
-    dev = X.device
+    dev = X.device if device is None else torch.device(device)
     sn = min(sncells if sncells is not None else cfg.sncells, n)
     if probe is None:
         probe = draw_testlog_probe(rN_seed, n, genes, cfg.reduced_ndim, dev)
     npad = pad_dim(sn)
     Xp = torch.zeros((npad, genes), dtype=torch.float32, device=dev)
-    Xp[:sn] = X[probe.perm[:sn].to(dev)]
+    Xp[:sn] = X[probe.perm[:sn].to(X.device)].to(dev)
     mask = torch.arange(npad, device=dev) < sn
     R = probe.R.to(dev)
 
@@ -115,7 +119,7 @@ def testlog_decide(
 
 def resolve_log_transform(
     X: torch.Tensor, cfg: SharpConfig, rN_seed: int,
-    probe: Optional[TestlogProbe] = None,
+    probe: Optional[TestlogProbe] = None, device=None,
 ) -> bool:
     """Reference decision tree for the final log2 flag (R/SHARP.R:202-228)."""
     if cfg.log_transform is not None:
@@ -124,14 +128,7 @@ def resolve_log_transform(
         return True  # "Log-transform is employed!" without checking
     if cfg.logflag is None and cfg.n_cells >= 1e4:
         return True
-    return testlog_decide(X, cfg, rN_seed, probe=probe)
-
-
-def _allc_pad(cfg: SharpConfig) -> int:
-    """Static budget for distinct (member, cluster) ids in wMetaC
-    (`sharp_tpu/core/fold.py:_allc_pad`)."""
-    exact = cfg.ensize_K * min(cfg.maxN_cluster + 1, cfg.nc_pad - 1)
-    return min(max(64, ((exact + 63) // 64) * 64), 1024)
+    return testlog_decide(X, cfg, rN_seed, probe=probe, device=device)
 
 
 def sharp_small(

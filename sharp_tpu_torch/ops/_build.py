@@ -3,8 +3,9 @@
 Each `.cu` source has a plain C interface and becomes its own shared
 library, compiled by `nvcc` for Hopper (`sm_90a`) at first use into
 `build/kernels/` at the root of the checkout, and loaded with `ctypes`.
-The libraries are keyed on a hash of their source and the flags, so an
-edited source is rebuilt and a built one is reused. All sources compile in
+The libraries are keyed on a hash of their source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and a built
+one is reused. All sources compile in
 parallel, one `nvcc` each.
 
 Flags: `--fmad=false` keeps the float arithmetic unfused (the Ward kernel
@@ -26,7 +27,7 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("ward_serial.cu", "cutree.cu")
+SOURCES = ("ward_serial.cu", "cutree.cu", "rnn_tail.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -48,6 +49,11 @@ _SIGNATURES = {
             _INT, [_VOID_P, _VOID_P, _VOID_P, _INT, _INT, _INT, _INT, _VOID_P]
         ),
     },
+    "rnn_tail.cu": {
+        "sharp_rnn_tail_launch": (
+            _INT, [_VOID_P] * 8 + [_INT, _INT, _INT, _VOID_P]
+        ),
+    },
 }
 
 
@@ -65,6 +71,8 @@ def _nvcc() -> str:
 def _lib_path(src: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / src).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(src).stem}_{h.hexdigest()[:16]}.so"
 

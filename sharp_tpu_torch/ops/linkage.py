@@ -11,16 +11,22 @@ Counterpart of `sharp_tpu/ops/linkage.py`. The reference bottoms out in
     the merge as (min, max).
   * `cutree_multi` replays the merge sequence once and snapshots the labels
     at every candidate k in [minN, minN+ncand).
+  * `ward_linkage_rnn` is the reciprocal-nearest-neighbour ladder for
+    large problems: rounds merge every mutual-NN pair at once, a size
+    ladder compacts the survivors, and `rnn_tail` drains the last
+    compacted subproblem in strict serial order.
 
-These are the plain versions of the two hand-written kernels in
-`ops/linkage_cuda.py` (`ward_linkage_serial`, `cutree_multi_kernel`): the
-CPU runs them, and the card's run is held against them.
+`ward_linkage`, `cutree_snapshots` and `rnn_tail` are the plain versions of
+the hand-written kernels in `ops/linkage_cuda.py` (`ward_linkage_serial`,
+`cutree_multi_kernel`, `rnn_tail_kernel`): the CPU runs them, and the
+card's run is held against them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Union
+from typing import List, NamedTuple, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from sharp_tpu_torch.ops.distance import BIG
@@ -72,38 +78,36 @@ SERIAL_MAX_N = 1024
 def resolve_linkage_backend(backend: str, n_pad: int, hmethod: str = "ward.D") -> str:
     """Map `SharpConfig.linkage_backend` to the port's linkage for a problem
     of padded size n_pad: "serial" (ward.D through the serial Ward kernel
-    on a CUDA tensor, its plain loop on a CPU tensor) or "plain" (the
-    full-argmin loop, for the other hmethods on both devices).
+    on a CUDA tensor, its plain loop on a CPU tensor), "rnn" / "rnn_bf16"
+    (the reciprocal-NN ladder with f32 / bf16 matrix storage) or "plain"
+    (the full-argmin loop, for the other hmethods on both devices).
 
-    "auto", "xla" and "pallas" all name the exact serial f32 merge order
-    and resolve to "serial" for ward.D. The reciprocal-NN ladder ("rnn",
-    "rnn_bf16"), the bf16 store ("pallas_bf16") and serial problems above
-    n_pad 1024 belong to the next slice of the port and raise.
+    "auto", "xla" and "pallas" name the exact serial f32 merge order: the
+    serial kernel up to n_pad 1024, above that the ladder with f32 storage
+    (its merges are the serial ones on tie-free data). "rnn" and
+    "rnn_bf16" take the ladder at every size. "pallas_bf16" (serial Ward
+    with bf16 storage) is not ported yet and raises.
     """
     if hmethod not in HMETHODS:
         raise ValueError(f"unknown hmethod {hmethod!r}")
-    if backend in ("rnn", "rnn_bf16", "pallas_bf16"):
+    if backend == "pallas_bf16":
         raise NotImplementedError(
-            f"linkage backend {backend!r} is not ported yet: the "
-            "reciprocal-NN ladder and bf16 storage come with the next slice "
-            "(ROADMAP.md, Queue 1 'Next slice')"
+            "linkage backend 'pallas_bf16' (serial Ward with bf16 storage) is "
+            "not ported yet (ROADMAP.md, Queue 2); 'rnn_bf16' stores bf16 on "
+            "the ladder"
         )
-    if backend not in ("auto", "xla", "pallas"):
+    if backend not in ("auto", "xla", "pallas", "rnn", "rnn_bf16"):
         raise ValueError(f"unknown linkage backend {backend!r}")
     if hmethod != "ward.D":
-        if backend == "pallas":
+        if backend not in ("auto", "xla"):
             raise ValueError(
                 f"linkage backend {backend!r} implements ward.D only; "
                 f"hmethod {hmethod!r} requires backend='xla' (or 'auto')"
             )
         return "plain"
-    if n_pad > SERIAL_MAX_N:
-        raise NotImplementedError(
-            f"serial Ward takes n_pad <= {SERIAL_MAX_N} (got {n_pad}); larger "
-            "problems need the reciprocal-NN ladder and its tail kernel, "
-            "which come with the next slice (ROADMAP.md, Queue 1 'Next slice')"
-        )
-    return "serial"
+    if backend in ("rnn", "rnn_bf16"):
+        return backend
+    return "serial" if n_pad <= SERIAL_MAX_N else "rnn"
 
 
 def ward_linkage(D: torch.Tensor, method: str = "ward.D") -> LinkageResult:
@@ -157,6 +161,340 @@ def ward_linkage(D: torch.Tensor, method: str = "ward.D") -> LinkageResult:
         merges=merges.reshape(*batch, n - 1, 2),
         heights=heights.reshape(*batch, n - 1),
     )
+
+
+def _store_round(x: torch.Tensor, st: torch.dtype) -> torch.Tensor:
+    """float32 x rounded to the storage dtype and read back: bf16 rounds to
+    nearest even, as the JAX package's `lax.reduce_precision(x, 8, 7)`."""
+    return x if st == torch.float32 else x.to(st).float()
+
+
+def rnn_tail(
+    D: torch.Tensor, alive: torch.Tensor, sizes: torch.Tensor,
+    gidx: torch.Tensor, lasth: torch.Tensor,
+):
+    """Serial-drain the ladder's compacted subproblems, L lanes at once.
+
+    Plain version of `rnn_tail_kernel`, with the arithmetic and the tie
+    rule of the TPU kernel (`_rnn_tail_kernel`,
+    sharp_tpu/ops/linkage_pallas.py:496-562). Every step merges each lane's
+    flat first-index minimum pair (smallest value, then row, then column),
+    writes the Lance-Williams row and column in D's storage dtype, and
+    records (gidx[i], gidx[j]) with the height clamped to
+    max(h, lasth[i], lasth[j]), which becomes lasth[i].
+
+    D (L, Cn, Cn) float32 or bfloat16 with BIG on the diagonal and in dead
+    slots; alive (L, Cn) (1/0 or bool), sizes and lasth (L, Cn) float32,
+    gidx (L, Cn) integer. Returns mi, mj (L, Cn) int32 and hh (L, Cn)
+    float32; entry t of a lane is its t-th merge, and entries
+    t >= n_alive - 1 are garbage the caller masks.
+    """
+    L, Cn, _ = D.shape
+    dev = D.device
+    st = D.dtype
+    W = D.to(torch.float32, copy=True)        # the stored values, read as f32
+    act = alive > 0.5 if alive.dtype != torch.bool else alive.clone()
+    sz = sizes.to(torch.float32, copy=True)
+    lh = lasth.to(torch.float32, copy=True)
+    gi = gidx.to(torch.int32)
+    mi = torch.zeros((L, Cn), dtype=torch.int32, device=dev)
+    mj = torch.zeros((L, Cn), dtype=torch.int32, device=dev)
+    hh = torch.zeros((L, Cn), dtype=torch.float32, device=dev)
+    if L == 0:
+        return mi, mj, hh
+    lanes = torch.arange(L, device=dev)
+    ar = torch.arange(Cn, device=dev)
+    big = _store_round(torch.tensor(BIG, dtype=torch.float32, device=dev), st)
+    for t in range(int(act.sum(dim=1).max()) - 1):
+        rowmin = W.amin(dim=2)
+        m = rowmin.amin(dim=1, keepdim=True)
+        i0 = torch.where(rowmin == m, ar, Cn).amin(dim=1)
+        rowi = W[lanes, i0.clamp(max=Cn - 1)]
+        j0 = torch.where((rowi == m) & (ar != i0[:, None]), ar, Cn).amin(dim=1)
+        i = torch.minimum(i0, j0).clamp(max=Cn - 1)
+        j = torch.maximum(i0, j0).clamp(max=Cn - 1)
+        h = m
+        ni = sz[lanes, i][:, None]
+        nj = sz[lanes, j][:, None]
+        formula = ((ni + sz) * W[lanes, i] + (nj + sz) * W[lanes, j] - sz * h) / (ni + nj + sz)
+        valid = act & (ar != i[:, None]) & (ar != j[:, None])
+        newrow = _store_round(torch.where(valid, formula, big), st)
+        W[lanes, i] = newrow
+        W[lanes, :, i] = newrow
+        W[lanes, j] = big
+        W[lanes, :, j] = big
+        act[lanes, j] = False
+        sz[lanes, i] = (ni + nj)[:, 0]
+        hrec = torch.maximum(h[:, 0], torch.maximum(lh[lanes, i], lh[lanes, j]))
+        lh[lanes, i] = hrec
+        mi[:, t] = gi[lanes, i]
+        mj[:, t] = gi[lanes, j]
+        hh[:, t] = hrec
+    return mi, mj, hh
+
+
+def _append(merges, heights, cnt, ga, gb, hrec, valid) -> None:
+    """Write the merges (ga, gb, hrec) (L, S) of the valid slots into
+    merges (L, n, 2) / heights (L, n) at each lane's offset cnt, in slot
+    order; the other slots write to the discard slot n - 1."""
+    S = ga.shape[1]
+    pos = cnt[:, None] + torch.arange(S, device=ga.device)
+    pos = torch.where(valid, pos, merges.shape[1] - 1)
+    ents = torch.stack([ga, gb], dim=-1).to(torch.int32)
+    merges.scatter_(1, pos[:, :, None].expand(-1, -1, 2), ents)
+    heights.scatter_(1, pos, hrec)
+
+
+class RnnLadder:
+    """Per-lane state of the reciprocal-NN ladder (`rnn_ladder`): the
+    current level's matrix and cluster state, and the merges recorded so
+    far."""
+
+    def __init__(self, D: torch.Tensor, st: torch.dtype):
+        L, n, _ = D.shape
+        dev = D.device
+        self.n = n
+        self.D = torch.where(torch.eye(n, dtype=torch.bool, device=dev), BIG, D).to(st)
+        self.big = torch.tensor(BIG, dtype=st, device=dev)
+        self.alive = torch.ones((L, n), dtype=torch.bool, device=dev)
+        self.sizes = torch.ones((L, n), dtype=torch.float32, device=dev)
+        self.gidx = torch.arange(n, device=dev).repeat(L, 1)   # global cluster of each slot
+        self.lasth = torch.zeros((L, n), dtype=torch.float32, device=dev)
+        # n - 1 merge records and, at n - 1, one slot that absorbs the
+        # writes of empty pair slots
+        self.merges = torch.zeros((L, n, 2), dtype=torch.int32, device=dev)
+        self.heights = torch.zeros((L, n), dtype=torch.float32, device=dev)
+        self.cnt = torch.zeros(L, dtype=torch.long, device=dev)
+        self.rounds = torch.zeros(L, dtype=torch.long, device=dev)
+
+    def tail_inputs(self):
+        """(D, alive, sizes, gidx, lasth) of the compacted subproblem, as
+        `rnn_tail` / `rnn_tail_kernel` take them."""
+        return self.D, self.alive.float(), self.sizes, self.gidx.to(torch.int32), self.lasth
+
+    def finish(self, mi, mj, hh) -> LinkageResult:
+        """The whole merge sequence, (L, n-1, 2) and (L, n-1): the ladder's
+        merges and the tail's (mi, mj, hh) for t < n_alive - 1, sorted
+        stably by recorded height. Leaves the ladder as it is."""
+        L, n = self.merges.shape[0], self.n
+        merges, heights = self.merges.clone(), self.heights.clone()
+        steps = torch.arange(mi.shape[1], device=mi.device)[None, :]
+        _append(merges, heights, self.cnt, mi, mj, hh, steps < self.alive.sum(dim=1, keepdim=True) - 1)
+        heights, order = torch.sort(heights[:, : n - 1], dim=1, stable=True)
+        merges = merges[:, : n - 1].gather(1, order[:, :, None].expand(L, n - 1, 2))
+        return LinkageResult(merges, heights)
+
+    def round(self, active: torch.Tensor, P: int) -> None:
+        """One round on the lanes flagged `active`: merge up to P mutual
+        nearest-neighbour pairs per lane (sharp_tpu/ops/linkage.py:612-767,
+        with the one-hot contractions written as direct indexing)."""
+        W = self.D
+        L, m, _ = W.shape
+        dev = W.device
+        st = W.dtype
+        ar = torch.arange(m, device=dev)
+        arP = torch.arange(P, device=dev)
+        # row min and first-index argmin over the stored values
+        rowmin_st, nn = W.min(dim=2)
+        rowmin = rowmin_st.float()
+        mutual = (nn.gather(1, nn) == ar) & self.alive & (rowmin < 0.5 * BIG)
+        lead = mutual & (ar < nn) & active[:, None]
+        # the first P leads of each lane, in index order
+        rank = lead.cumsum(dim=1) - 1
+        slot = torch.where(lead & (rank < P), rank, P)
+        a = torch.zeros((L, P + 1), dtype=torch.long, device=dev)
+        a = a.scatter_(1, slot, ar.expand(L, m))[:, :P]
+        n_pairs = lead.sum(dim=1).clamp(max=P)
+        sv = arP[None, :] < n_pairs[:, None]
+        b = torch.where(sv, nn.gather(1, a), 0)
+        svf = sv.float()
+        na = self.sizes.gather(1, a) * svf
+        nb = self.sizes.gather(1, b) * svf
+        h = torch.where(sv, rowmin.gather(1, a), BIG)
+
+        Da = W.gather(1, a[:, :, None].expand(L, P, m)).float()
+        Db = W.gather(1, b[:, :, None].expand(L, P, m)).float()
+        nk = self.sizes[:, None, :]
+        newrows = (
+            (na[:, :, None] + nk) * Da + (nb[:, :, None] + nk) * Db - nk * h[:, :, None]
+        ) / ((na + nb)[:, :, None] + nk)
+        del Da, Db
+        rows_st = newrows.to(st)
+        rows_rt = rows_st.float()
+        # pair-pair entries: the later merge's Lance-Williams step applied to
+        # the earlier merge's stored fresh row (the serial association)
+        Ra = rows_rt.gather(2, a[:, None, :].expand(L, P, P))
+        Rb = rows_rt.gather(2, b[:, None, :].expand(L, P, P))
+        ne = na + nb
+        E = (
+            (na[:, None, :] + ne[:, :, None]) * Ra
+            + (nb[:, None, :] + ne[:, :, None]) * Rb
+            - ne[:, :, None] * h[:, None, :]
+        ) / torch.clamp_min((na + nb)[:, None, :] + ne[:, :, None], 1e-9)
+        hp, hq = h[:, :, None], h[:, None, :]
+        earlier = (hp < hq) | ((hp == hq) & (a[:, :, None] < a[:, None, :]))
+        V = torch.where(earlier, E, E.transpose(1, 2)).to(st)
+
+        # colslot[l, c]: the pair slot whose survivor is column c, or -1
+        colslot = torch.full((L, m + 1), -1, dtype=torch.long, device=dev)
+        colslot = colslot.scatter_(1, torch.where(sv, a, m), arP.expand(L, P))[:, :m]
+        cola = colslot >= 0
+        cs = colslot.clamp_min(0)
+        dying = torch.zeros((L, m + 1), dtype=torch.bool, device=dev)
+        dying = dying.scatter_(1, torch.where(sv, b, m), torch.ones_like(sv))[:, :m]
+        rows_st = torch.where(cola[:, None, :], V.gather(2, cs[:, None, :].expand(L, P, m)), rows_st)
+        selfm = (ar == a[:, :, None]) | (ar == b[:, :, None])
+        rows_st = torch.where(
+            selfm | dying[:, None, :] | ~self.alive[:, None, :], self.big, rows_st
+        )
+
+        # survivors' rows and columns take their fresh rows; dying ones die
+        full = rows_st.gather(1, cs[:, :, None].expand(L, m, m))
+        W = torch.where(cola[:, None, :], full.transpose(1, 2), W)
+        torch.where(cola[:, :, None], full, W, out=W)
+        del full
+        W.masked_fill_(dying[:, :, None] | dying[:, None, :], self.big)
+        self.D = W
+        self.alive = self.alive & ~dying
+        self.sizes = self.sizes + torch.where(cola, nb.gather(1, cs), 0.0)
+
+        # recorded height: clamped to the merging clusters' earlier records,
+        # so the final stable height sort stays topological under rounding
+        hrec = torch.maximum(h, torch.maximum(self.lasth.gather(1, a), self.lasth.gather(1, b)))
+        hrec = torch.where(sv, hrec, BIG)
+        self.lasth = torch.where(cola, hrec.gather(1, cs), self.lasth)
+        _append(self.merges, self.heights, self.cnt,
+                self.gidx.gather(1, a), self.gidx.gather(1, b), hrec, sv)
+        self.cnt += n_pairs
+        self.rounds += active.long()
+
+    def compact(self, Cn: int) -> None:
+        """Gather each lane's <= Cn survivors, in index order, into a
+        (Cn, Cn) subproblem (sharp_tpu/ops/linkage.py:786-815)."""
+        W = self.D
+        L, m, _ = W.shape
+        dev = W.device
+        ar = torch.arange(m, device=dev)
+        arC = torch.arange(Cn, device=dev)
+        n_alive = self.alive.sum(dim=1)
+        rank = self.alive.cumsum(dim=1) - 1
+        slot = torch.where(self.alive & (rank < Cn), rank, Cn)
+        surv = torch.zeros((L, Cn + 1), dtype=torch.long, device=dev)
+        surv = surv.scatter_(1, slot, ar.expand(L, m))[:, :Cn]
+        svC = arC[None, :] < n_alive[:, None]
+        D2 = W.gather(1, surv[:, :, None].expand(L, Cn, m))
+        D2 = D2.gather(2, surv[:, None, :].expand(L, Cn, Cn))
+        keep = svC[:, :, None] & svC[:, None, :] & (arC[:, None] != arC[None, :])
+        self.D = torch.where(keep, D2, self.big)
+        self.alive = svC
+        self.sizes = torch.where(svC, self.sizes.gather(1, surv), 1.0)
+        self.gidx = torch.where(svC, self.gidx.gather(1, surv), 0)
+        self.lasth = torch.where(svC, self.lasth.gather(1, surv), 0.0)
+        self.rounds.zero_()
+
+
+def rnn_ladder(
+    D: torch.Tensor,
+    pair_cap: int = 128,
+    store_dtype: Optional[torch.dtype] = None,
+    compact_n: int = 256,
+) -> RnnLadder:
+    """The rounds of the reciprocal-NN ladder over D (L, n, n), down to the
+    compacted subproblem of at most `compact_n` clusters per lane that the
+    tail drains (sharp_tpu/ops/linkage.py:817-837).
+
+    Ward's recurrence is reducible, so every mutual-NN pair can merge in
+    one round. At each level, rounds run only until a lane's survivors fit
+    the next (half-size) level; then the survivors are compacted. The L
+    lanes behave as separate calls: a lane that already fits the next level
+    takes no more rounds while others do (a vmapped while loop in the JAX
+    package). One host sync per round decides whether any lane goes on.
+    """
+    L, n, _ = D.shape
+    st = store_dtype if store_dtype is not None else D.dtype
+    if st not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the ladder stores float32 or bfloat16, got {st}")
+    C = min(compact_n, n)
+    s = RnnLadder(D, st)
+    lvl = n
+    while lvl > C:
+        nxt = max(lvl // 2, C)
+        P = min(pair_cap, lvl // 2)
+        while True:
+            active = (s.cnt < n - 1) & (s.alive.sum(dim=1) > nxt) & (s.rounds < n)
+            if not bool(active.any()):
+                break
+            s.round(active, P)
+        s.compact(nxt)
+        lvl = nxt
+    return s
+
+
+def ward_linkage_rnn(
+    D: torch.Tensor,
+    pair_cap: int = 128,
+    store_dtype: Optional[torch.dtype] = None,
+    compact_n: int = 256,
+    compact_cap: int = 32,
+) -> LinkageResult:
+    """ward.D agglomeration by reciprocal-nearest-neighbour rounds over D
+    (L, n, n) or (n, n): the port of `sharp_tpu/ops/linkage.py:
+    ward_linkage_rnn`.
+
+    `rnn_ladder` runs the rounds; the compacted subproblem is drained in
+    strict serial order by `rnn_tail_kernel` (the plain `rnn_tail` for a
+    CPU tensor); the serial order is recovered by a stable sort on the
+    recorded heights, which are clamped to each cluster's previous record.
+
+    `store_dtype` (float32 or bfloat16, default D's dtype) is the matrix
+    storage; the Lance-Williams arithmetic stays float32. `compact_cap` is
+    accepted for signature parity: it sizes the JAX package's round-based
+    tail, which the serial tail replaces.
+    """
+    from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
+
+    squeeze = D.dim() == 2
+    ladder = rnn_ladder(D[None] if squeeze else D, pair_cap, store_dtype, compact_n)
+    link = ladder.finish(*rnn_tail_kernel(*ladder.tail_inputs()))
+    return LinkageResult(link.merges[0], link.heights[0]) if squeeze else link
+
+
+def validate_merge_sequence(merges, heights, n_real: int, n_pad: int) -> List[str]:
+    """Host-side structural check of one merge sequence; empty when valid.
+
+    Index range, self-merges, duplicated pairs, replay viability (every
+    merged-away j must be a live representative) and height monotonicity
+    over the real merges (`sharp_tpu/ops/linkage.py:validate_merge_sequence`).
+    """
+    if isinstance(merges, torch.Tensor):
+        merges = merges.cpu().numpy()
+    if isinstance(heights, torch.Tensor):
+        heights = heights.float().cpu().numpy()
+    errs = []
+    m = np.asarray(merges)[: n_pad - 1]
+    h = np.asarray(heights)[: n_pad - 1]
+    if (m < 0).any() or (m >= n_pad).any():
+        errs.append(f"indices out of range [0,{n_pad}): min={m.min()} max={m.max()}")
+        return errs
+    n_self = int((m[:, 0] == m[:, 1]).sum())
+    if n_self:
+        errs.append(f"{n_self} self-merges")
+    pairs = {(int(a), int(b)) for a, b in m}
+    if len(pairs) < len(m):
+        errs.append(f"{len(m) - len(pairs)} duplicated pairs")
+    lab = np.arange(n_pad)
+    viol = 0
+    for a, b in m:
+        if not (lab == b).any():
+            viol += 1
+        lab[lab == b] = a
+    if viol:
+        errs.append(f"{viol} replay violations (merged-away index reused)")
+    hr = h[: n_real - 1]
+    drops = int((np.diff(hr) < -1e-5 * np.maximum(np.abs(hr[:-1]), 1e-9)).sum())
+    if drops:
+        errs.append(f"{drops} height-order drops in real merges")
+    return errs
 
 
 def densify_labels(lab: torch.Tensor, real_mask: torch.Tensor, nc_pad: int):
@@ -221,9 +559,11 @@ def cut_forest(
     minN: int, ncand: int, nc_pad: int,
 ) -> CutForest:
     """Dense labels, cluster counts and the validity mask of (G, ncand, n)
-    snapshots (shared by the plain and the kernel replay)."""
+    snapshots (shared by the plain and the kernel replay); real_mask (n,)
+    for all problems or (G, n) one per problem."""
     G = snaps.shape[0]
-    dense, k = densify_labels(snaps, real_mask, nc_pad)
+    rm = real_mask[:, None, :] if real_mask.dim() == 2 else real_mask
+    dense, k = densify_labels(snaps, rm, nc_pad)
     nr = counts_per_problem(n_real, G, snaps.device)[:, None]
     ks = minN + torch.arange(ncand, device=snaps.device)[None, :]
     # nc_pad - 1 caps representable cuts (dense ids must clear the

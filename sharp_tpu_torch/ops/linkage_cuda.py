@@ -1,10 +1,11 @@
-"""Wrappers of the hand-written Hopper kernels for serial Ward and the cut replay.
+"""Wrappers of the hand-written Hopper kernels: serial Ward, the ladder tail and the cut replay.
 
 Counterpart of `sharp_tpu/ops/linkage_pallas.py`, with the same public
 names where a TPU kernel has a port:
 
     ward_linkage_pallas  -> ward_linkage_serial   (csrc/ward_serial.cu)
     cutree_multi_pallas  -> cutree_multi_kernel   (csrc/cutree.cu)
+    rnn_tail_pallas      -> rnn_tail_kernel       (csrc/rnn_tail.cu)
 
 A wrapper launches its kernel for a CUDA tensor and takes the kernel's
 plain version (`ops/linkage.py`) only for a CPU tensor; any other device,
@@ -23,12 +24,16 @@ from sharp_tpu_torch.ops.linkage import (
     LinkageResult,
     cut_forest,
     cutree_snapshots,
+    rnn_tail,
     ward_linkage,
     counts_per_problem,
 )
 
 # the cut replay stages merges + labels (3n int32) in 48 KB of shared memory
 CUTREE_MAX_N = 4096
+# the tail kernel drains one lane per thread block of at most 1024 threads
+RNN_TAIL_MAX_N = 1024
+_TAIL_STORE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -83,6 +88,55 @@ def ward_linkage_serial(D: torch.Tensor) -> LinkageResult:
 
 
 ward_linkage_serial.launches = 0
+
+
+def rnn_tail_kernel(
+    D: torch.Tensor, alive: torch.Tensor, sizes: torch.Tensor,
+    gidx: torch.Tensor, lasth: torch.Tensor,
+):
+    """Serial-drain the ladder's compacted subproblems D (L, Cn, Cn),
+    float32 or bfloat16 storage, alive/sizes/lasth (L, Cn) float32 and
+    gidx (L, Cn) int32 -> mi, mj (L, Cn) int32, hh (L, Cn) float32.
+
+    Same contract as `ops.linkage.rnn_tail`; for t < n_alive - 1 the output
+    is identical to it. The kernel stops each lane after its n_alive - 1
+    merges and leaves zeros in the entries after them.
+    """
+    if _device_kind(D) == "cpu":
+        return rnn_tail(D, alive, sizes, gidx, lasth)
+    if D.dtype not in _TAIL_STORE:
+        raise TypeError(f"rnn_tail_kernel stores float32 or bfloat16, got {D.dtype}")
+    if D.dim() != 3 or D.shape[1] != D.shape[2]:
+        raise ValueError(f"rnn_tail_kernel takes D (L, Cn, Cn), got {tuple(D.shape)}")
+    L, Cn, _ = D.shape
+    if not 2 <= Cn <= RNN_TAIL_MAX_N:
+        raise ValueError(f"rnn_tail_kernel takes 2 <= Cn <= {RNN_TAIL_MAX_N}, got {Cn}")
+    for name, x, dt in (("alive", alive, torch.float32), ("sizes", sizes, torch.float32),
+                        ("gidx", gidx, torch.int32), ("lasth", lasth, torch.float32)):
+        if x.dtype != dt or tuple(x.shape) != (L, Cn) or x.device != D.device:
+            raise ValueError(
+                f"rnn_tail_kernel takes {name} ({L}, {Cn}) {dt} on {D.device}, got "
+                f"{tuple(x.shape)} {x.dtype} on {x.device}"
+            )
+    from sharp_tpu_torch.ops._build import load_kernels
+
+    lib = load_kernels()["rnn_tail.cu"]
+    W = D.contiguous().clone()   # the kernel updates its matrix in place
+    state = [x.contiguous() for x in (alive, sizes, gidx, lasth)]
+    mi = torch.empty((L, Cn), dtype=torch.int32, device=D.device)
+    mj = torch.empty((L, Cn), dtype=torch.int32, device=D.device)
+    hh = torch.empty((L, Cn), dtype=torch.float32, device=D.device)
+    rc = lib.sharp_rnn_tail_launch(
+        W.data_ptr(), *(x.data_ptr() for x in state),
+        mi.data_ptr(), mj.data_ptr(), hh.data_ptr(),
+        L, Cn, _TAIL_STORE[D.dtype], _stream(),
+    )
+    _check_rc(rc, "rnn_tail")
+    rnn_tail_kernel.launches += 1
+    return mi, mj, hh
+
+
+rnn_tail_kernel.launches = 0
 
 
 def cutree_snapshots_kernel(

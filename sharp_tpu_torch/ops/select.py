@@ -12,8 +12,9 @@ over a Pearson (or 1-S) distance, a sweep of candidate cuts k in
   3. if CH picks the smallest k: the dendrogram height-gap rule (:196-210);
   4. a fixed `N_cluster` overrides the choice (:90-107).
 
-For ward.D the linkage and the cut replay go through the hand-written
-kernels' wrappers (`ops/linkage_cuda.py`): on a CUDA tensor they launch the
+For ward.D the linkage (serial Ward, or the reciprocal-NN ladder with its
+tail kernel) and the cut replay go through the hand-written kernels'
+wrappers (`ops/linkage_cuda.py`): on a CUDA tensor they launch the
 kernels, on a CPU tensor they run the plain loops.
 """
 
@@ -38,6 +39,7 @@ from sharp_tpu_torch.ops.linkage import (
     real_heights_tail,
     resolve_linkage_backend,
     ward_linkage,
+    ward_linkage_rnn,
 )
 from sharp_tpu_torch.ops.linkage_cuda import cutree_multi_kernel, ward_linkage_serial
 from sharp_tpu_torch.ops.silhouette import sweep_scores_nested
@@ -70,9 +72,13 @@ def _general_linkage(D: torch.Tensor, hmethod: str) -> LinkageResult:
 
 
 def linkage(D: torch.Tensor, backend: str, hmethod: str) -> LinkageResult:
-    """Linkage of D (..., n, n) for a resolved backend ("serial" | "plain")."""
+    """Linkage of D (..., n, n) for a resolved backend ("serial" | "rnn" |
+    "rnn_bf16" | "plain", `ops.linkage.resolve_linkage_backend`)."""
     if backend == "serial":
         return ward_linkage_serial(D)
+    if backend in ("rnn", "rnn_bf16"):
+        store = torch.bfloat16 if backend == "rnn_bf16" else None
+        return ward_linkage_rnn(D, store_dtype=store)
     return _general_linkage(D, hmethod)
 
 
@@ -88,7 +94,8 @@ def _middle_tied_argmax(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def prep_distance(mat: torch.Tensor, real_mask: torch.Tensor, symmetric: bool):
     """(D with pad tiers, D_real with pads and diagonal zeroed, feats_unit)
-    for one problem or a batch (..., n_pad, .)."""
+    for one problem or a batch (..., n_pad, .); real_mask (n_pad,) for all
+    problems or (..., n_pad) one per problem."""
     if symmetric:
         D = similarity_to_distance(mat, real_mask)
         feats = mat  # CH uses S itself as features (R/get_opt_hclust.R:111,144)
@@ -97,10 +104,10 @@ def prep_distance(mat: torch.Tensor, real_mask: torch.Tensor, symmetric: bool):
         D = pearson_distance(Z, real_mask)
         feats = Z
     n = D.shape[-1]
-    keep = real_mask[:, None] & real_mask[None, :]
+    keep = real_mask[..., :, None] & real_mask[..., None, :]
     keep = keep & ~torch.eye(n, dtype=torch.bool, device=D.device)
     D_real = torch.where(keep, D, 0.0)
-    feats_unit = _unit_rows(feats) * real_mask[:, None].to(torch.float32)
+    feats_unit = _unit_rows(feats) * real_mask[..., :, None].to(torch.float32)
     return D, D_real, feats_unit
 
 

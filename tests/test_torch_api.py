@@ -1,5 +1,5 @@
-"""The port's entry points on the CPU: no JAX import, explicit devices, and
-loud refusals for what this slice does not port yet."""
+"""The port's entry points on the CPU: no JAX import, explicit devices, both
+tiers, and loud refusals for what is not ported yet."""
 
 import os
 import shutil
@@ -35,8 +35,10 @@ def test_port_runs_without_importing_jax():
         "from synth import make_tpm_like\n"
         "X, y = make_tpm_like(n_cells=120, n_genes=200, n_types=3, seed=1)\n"
         "res = sharp_tpu_torch.sharp(X, rN_seed=3, ensize_K=3, device='cpu')\n"
+        "big = sharp_tpu_torch.sharp(X, rN_seed=3, ensize_K=3, base_ncells=100,\n"
+        "                            partition_ncells=60, device='cpu')\n"
         "import sharp_tpu_torch.carry, sharp_tpu_torch.ops.linkage_cuda\n"
-        "assert len(res.pred_clusters) == 120\n"
+        "assert len(res.pred_clusters) == 120 and big.folds.max() == 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
         "print('ok', res.N_pred_cluster)\n"
@@ -47,22 +49,41 @@ def test_port_runs_without_importing_jax():
 
 
 def test_large_tier_raises():
+    """The large tier runs; folds over several cards are what still raises."""
     X, _ = make_tpm_like(n_cells=150, n_genes=100, n_types=3, seed=0)
-    with pytest.raises(NotImplementedError, match="large tier"):
-        sharp_tpu_torch.sharp(X, base_ncells=100, device="cpu")
+    with pytest.raises(NotImplementedError, match="several cards"):
+        sharp_tpu_torch.sharp(X, base_ncells=100, n_devices=2, device="cpu")
 
 
 def test_small_tier_above_1024_raises():
+    """Above n_pad 1024 the small tier takes the ladder; only the unported
+    serial bf16 store still raises there."""
     X = np.ones((1100, 20), np.float32)
-    with pytest.raises(NotImplementedError, match="reciprocal-NN ladder"):
-        sharp_tpu_torch.sharp(X, device="cpu")
+    with pytest.raises(NotImplementedError, match="pallas_bf16"):
+        sharp_tpu_torch.sharp(X, linkage_backend="pallas_bf16", device="cpu")
+
+
+def test_small_tier_above_1024_runs_the_ladder():
+    X, y = make_tpm_like(n_cells=1100, n_genes=60, n_types=3, seed=2)
+    res = sharp_tpu_torch.sharp(X, rN_seed=1, ensize_K=2, device="cpu")
+    assert res.paras["block_pad"] == 1536 and len(res.pred_clusters) == 1100
+    from sharp_tpu.analysis.ari import ari
+
+    assert ari(y, res.pred_clusters) >= 0.9
 
 
 @pytest.mark.parametrize("backend", ["rnn", "rnn_bf16", "pallas_bf16"])
 def test_unported_linkage_backends_raise(backend):
+    """The ladder backends implement ward.D only; serial bf16 is not ported."""
     X, _ = make_tpm_like(n_cells=60, n_genes=100, n_types=2, seed=0)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        sharp_tpu_torch.sharp(X, linkage_backend=backend, device="cpu")
+    if backend == "pallas_bf16":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sharp_tpu_torch.sharp(X, linkage_backend=backend, device="cpu")
+    else:
+        with pytest.raises(ValueError, match="ward.D only"):
+            sharp_tpu_torch.sharp(X, linkage_backend=backend, hmethod="average", device="cpu")
+        res = sharp_tpu_torch.sharp(X, linkage_backend=backend, rN_seed=1, ensize_K=2, device="cpu")
+        assert len(res.pred_clusters) == 60
 
 
 def test_sharp_unlimited_raises():
@@ -103,6 +124,10 @@ def test_carry_checks_shapes():
         carry.testlog_probe_from_jax(np.zeros(5, int), np.zeros((30, 4)), 5, 30, 4)
     with pytest.raises(ValueError, match="R_probe"):
         carry.testlog_probe_from_jax(np.arange(5), np.zeros((30, 3)), 5, 30, 4)
+    perm = carry.shuffle_perm_from_jax(np.array([2, 0, 1]), 3)
+    assert perm.tolist() == [2, 0, 1] and perm.dtype == torch.int64
+    with pytest.raises(ValueError, match="permutation"):
+        carry.shuffle_perm_from_jax(np.array([0, 0, 1]), 3)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

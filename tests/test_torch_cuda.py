@@ -72,6 +72,68 @@ def test_cutree_kernel_matches_plain(dev, ncand):
         assert torch.equal(x, y)
 
 
+def _tail_lanes(L, Cn, dev, seed=0):
+    """Compacted-tail-like lanes: the first n_alive slots live, dead slots
+    and the diagonal BIG, sizes > 1, running heights, increasing global
+    indices, duplicated points (exact ties)."""
+    from sharp_tpu_torch.ops.distance import BIG
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n_alive = [Cn - (7 * lane) % (Cn // 2) for lane in range(L)]
+    D = torch.stack([_distances(1, Cn, na, 16, seed=seed + lane, dev="cpu")[0] for lane, na in enumerate(n_alive)])
+    D[:, 1:4] = D[:, 0:1]
+    D[:, :, 1:4] = D[:, :, 0:1]
+    alive = torch.zeros((L, Cn))
+    for lane, na in enumerate(n_alive):
+        alive[lane, :na] = 1.0
+        D[lane, na:, :] = BIG
+        D[lane, :, na:] = BIG
+    D[:, torch.arange(Cn), torch.arange(Cn)] = BIG
+    sizes = torch.randint(1, 6, (L, Cn), generator=g).float()
+    lasth = torch.rand((L, Cn), generator=g) * 0.05
+    gidx = torch.sort(torch.randint(0, 4 * Cn, (L, Cn), generator=g), dim=1).values.int()
+    return [x.to(dev) for x in (D, alive, sizes, gidx, lasth)], n_alive
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+def test_rnn_tail_kernel_matches_plain(dev, store):
+    from sharp_tpu_torch.ops.linkage import rnn_tail
+    from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
+
+    (D, *state), n_alive = _tail_lanes(12, 256, dev)
+    D = D.to(store)
+    before = rnn_tail_kernel.launches
+    got = rnn_tail_kernel(D, *state)
+    torch.cuda.synchronize()
+    assert rnn_tail_kernel.launches == before + 1
+    ref = rnn_tail(D, *state)
+    for lane, na in enumerate(n_alive):
+        for a, b in zip(got, ref):
+            assert torch.equal(a[lane, : na - 1], b[lane, : na - 1])
+        assert not got[0][lane, na - 1 :].any()
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+def test_ladder_with_kernel_tail_matches_plain_tail(dev, store):
+    """The ladder on the card (rounds in torch, tail in the kernel) against
+    the same rounds finished by the plain tail, and against the whole ladder
+    on the CPU."""
+    from sharp_tpu_torch.ops.linkage import rnn_ladder, rnn_tail, ward_linkage_rnn
+    from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
+
+    D = _distances(6, 1024, 1000, 24, seed=5, dev=dev)
+    before = rnn_tail_kernel.launches
+    got = ward_linkage_rnn(D, store_dtype=store)
+    torch.cuda.synchronize()
+    assert rnn_tail_kernel.launches == before + 1
+    ladder = rnn_ladder(D, store_dtype=store)
+    plain = ladder.finish(*rnn_tail(*ladder.tail_inputs()))
+    cpu = ward_linkage_rnn(D.cpu(), store_dtype=store)
+    for ref in (plain, cpu):
+        assert torch.equal(got.merges.cpu(), ref.merges.cpu())
+        assert torch.equal(got.heights.cpu(), ref.heights.cpu())
+
+
 def test_wrappers_refuse_bad_input(dev):
     from sharp_tpu_torch.ops.linkage_cuda import cutree_snapshots_kernel, ward_linkage_serial
 
@@ -83,6 +145,17 @@ def test_wrappers_refuse_bad_input(dev):
         ward_linkage_serial(torch.zeros((1, 1100, 1100), device=dev))
     with pytest.raises(TypeError):
         cutree_snapshots_kernel(torch.zeros((1, 3, 2), dtype=torch.int64, device=dev), 4, minN=2, ncand=2)
+
+    from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
+
+    (D, *state), _ = _tail_lanes(2, 64, dev)
+    with pytest.raises(TypeError):
+        rnn_tail_kernel(D.double(), *state)
+    with pytest.raises(ValueError):
+        rnn_tail_kernel(D, state[0], state[1], state[2].long(), state[3])
+    big = torch.zeros((1, 1100, 1100), device=dev)
+    with pytest.raises(ValueError):
+        rnn_tail_kernel(big, *(torch.zeros((1, 1100), device=dev) for _ in range(4)))
 
 
 def test_sharp_on_card_matches_cpu(dev):
@@ -112,3 +185,66 @@ def test_sharp_on_card_matches_cpu(dev):
     b = sharp_tpu_torch.sharp(X, rM=R, testlog_probe=probe, device="cpu", **kw)
     np.testing.assert_array_equal(a.pred_clusters, b.pred_clusters)
     np.testing.assert_array_equal(a.per_member_k, b.per_member_k)
+
+
+def test_large_tier_on_card_matches_cpu(dev):
+    """The large tier (forced by a low base_ncells; folds padded to 512, the
+    ladder on every block linkage) on the card and on the CPU, with the
+    same injected draws, gives identical labels, member counts and folds."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synth import make_tpm_like
+
+    import sharp_tpu_torch
+    from sharp_tpu.config import resolve_config
+    from sharp_tpu_torch import carry
+    from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
+
+    n, genes = 700, 400
+    X, y = make_tpm_like(n_cells=n, n_genes=genes, n_types=4, seed=3)
+    kw = dict(rN_seed=4, ensize_K=4, prep=False, base_ncells=400, partition_ncells=300,
+              linkage_backend="rnn")
+    cfg = resolve_config(n, genes, **kw)
+    rng = np.random.default_rng(1)
+    p = cfg.reduced_ndim
+    R = (rng.random((genes, 4 * p)) < 0.05).astype(np.float32) * rng.choice([-1.0, 1.0], (genes, 4 * p))
+    draws = dict(
+        rM=R,
+        testlog_probe=carry.testlog_probe_from_jax(
+            rng.permutation(n), rng.choice([-1.0, 0.0, 1.0], (genes, p)), n, genes, p
+        ),
+        shuffle_perm=carry.shuffle_perm_from_jax(rng.permutation(n), n),
+    )
+    before = rnn_tail_kernel.launches
+    a = sharp_tpu_torch.sharp(X, device=dev, **draws, **kw)
+    assert rnn_tail_kernel.launches > before
+    b = sharp_tpu_torch.sharp(X, device="cpu", **draws, **kw)
+    np.testing.assert_array_equal(a.pred_clusters, b.pred_clusters)
+    np.testing.assert_array_equal(a.per_member_k, b.per_member_k)
+    np.testing.assert_array_equal(a.folds, b.folds)
+
+
+def test_fold_groups_do_not_change_results_on_card(dev):
+    """One fold per call and three folds in one call give the same labels
+    and member counts on the card (float summaries to float32 rounding: the
+    one RP product of a group has another row count)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synth import make_tpm_like
+
+    from sharp_tpu.config import resolve_config
+    from sharp_tpu_torch.parallel.sharded import process_folds_grouped
+
+    X, _ = make_tpm_like(n_cells=600, n_genes=300, n_types=4, seed=6)
+    cfg = resolve_config(600, 300, ensize_K=3, partition_ncells=200, rN_seed=2)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    R = torch.sign(torch.randn((300, 3 * cfg.reduced_ndim), generator=g)).to(dev)
+    runs = [process_folds_grouped(X, [200, 200, 200], 256, R, cfg, True, dev, group=k) for k in (1, 3)]
+    for a, b in zip(*runs):
+        for k in ("finalC", "n_meta", "counts", "k_per", "overflow"):
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
+        np.testing.assert_allclose(a["cent_sum"], b["cent_sum"], rtol=1e-5, atol=1e-4)

@@ -257,11 +257,17 @@ def test_resolve_linkage_backend():
     assert tlink.resolve_linkage_backend("xla", 128) == "serial"
     assert tlink.resolve_linkage_backend("pallas", 1024) == "serial"
     assert tlink.resolve_linkage_backend("auto", 512, "average") == "plain"
-    for backend in ("rnn", "rnn_bf16", "pallas_bf16"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            tlink.resolve_linkage_backend(backend, 512)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tlink.resolve_linkage_backend("auto", 2048)
+    # above the serial kernel's 1024: the ladder, with f32 storage
+    assert tlink.resolve_linkage_backend("auto", 2048) == "rnn"
+    assert tlink.resolve_linkage_backend("pallas", 1536) == "rnn"
+    assert tlink.resolve_linkage_backend("auto", 2048, "average") == "plain"
+    for backend in ("rnn", "rnn_bf16"):
+        assert tlink.resolve_linkage_backend(backend, 256) == backend
+        assert tlink.resolve_linkage_backend(backend, 2048) == backend
+        with pytest.raises(ValueError, match="ward.D only"):
+            tlink.resolve_linkage_backend(backend, 512, "average")
+    with pytest.raises(NotImplementedError, match="pallas_bf16"):
+        tlink.resolve_linkage_backend("pallas_bf16", 512)
     with pytest.raises(ValueError):
         tlink.resolve_linkage_backend("pallas", 512, "average")
     with pytest.raises(ValueError):
