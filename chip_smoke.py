@@ -5,7 +5,7 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-  1. build    nvcc builds the hand-written kernels (csrc/*.cu) into
+  1. build    nvcc builds the four hand-written kernels (csrc/*.cu) into
               build/kernels/, one nvcc per source, all at once.
   2. data     the flagship block: 50,000 cells x 27,998 genes, 10 planted
               types (tests/synth.py, data seed 0), made once on the host.
@@ -15,15 +15,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               wMetaC-like similarity and at (1, 1024, 1000 real), and the
               cut replay on the same merges. Large-tier shapes, from the
               first fold group of the flagship block (G=16 folds x K=5
-              members of 2,000 cells at n_pad 2048): the ladder tail at
-              (80, 256) on the survivor state the ladder compacts the group
-              down to, in f32 and in bf16 storage; the whole ladder with
-              the kernel tail against the ladder with the plain tail; the
-              cut replay at (80, 2048); serial Ward on the wMetaC problem
-              (1, 256). Merges, heights, tail outputs (t < n_alive - 1) and
-              snapshots must be identical. Median times from CUDA events
-              (kernels 20 launches, plain versions 3), and the ladder's time
-              with f32 and with bf16 storage.
+              members of 2,000 cells at n_pad 2048), in f32 and in bf16
+              storage: the round kernel on the inputs of the first round at
+              levels 2048 and 1024 (matrix, row minima and argmins
+              identical); the ladder tail at (80, 256) on the survivor state
+              the ladder compacts the group down to; the whole ladder with
+              kernel rounds against the same rounds finished by the plain
+              tail and against plain rounds (round_impl="xla"), merges and
+              heights identical, and both timed in turns (xla, pallas,
+              pallas, xla); the cut replay at (80, 2048); serial Ward on the
+              wMetaC problem (1, 256). Median times from CUDA events
+              (kernels 20 launches, plain versions 3), and each kernel's
+              bound: its bytes over 3.35 TB/s or its float32 operations over
+              67 TFLOP/s, whichever is larger.
   4. slice    the small tier: sharp_tpu_torch.sharp(X, rN_seed=2103,
               exp_type="TPM", device="cuda") at (a) 479 cells x 20,000
               genes, 7 planted types and (b) 1,000 x 20,000: ARI >= 0.9, every
@@ -35,26 +39,43 @@ Phases, in order; any failure raises and the script exits non-zero:
               labels, per-member cluster counts and folds identical; this
               run also warms the card up. (b) The flagship block, 25 folds:
               ARI >= 0.9 against the planted types; every fold group's block
-              linkage drained its tail in the tail kernel (launches >= fold
-              groups); wMetaC and sMetaC went through serial Ward and the
-              cut replay. Then the same block with linkage_backend="rnn_bf16",
-              and one more f32 run with the parts of fold_ensemble
-              synchronised and timed (fold program per group, projection,
-              distances, linkage, cut replay, per-member selections, wMetaC).
+              linkage ran its rounds in the round kernel (3 levels) and its
+              tail in the tail kernel; wMetaC and sMetaC went through serial
+              Ward and the cut replay. Then the same block with
+              linkage_backend="rnn_bf16", and one more f32 run with the
+              parts of fold_ensemble synchronised and timed.
+  6. unlimited  sharp_unlimited over SBLK files written into a temporary
+              directory outside the checkout (removed at the end). (a) 3
+              blocks of 2,500 x 5,000 with one injected numpy RP matrix:
+              labels identical on the card and on the CPU, and with the
+              sparse feed and the host densify. (b) The first 4 blocks of
+              the bench's flagship dataset (50,000 x 27,998 each, 38 planted
+              types, 2,048 nonzero genes per cell, 3.3 GB of SBLK), called as
+              the bench's API path calls it after an untimed warm-up on
+              block 0: ARI >= 0.95, at most 57 clusters, the round kernel 3
+              times and the tail kernel once per fold group, serial Ward at
+              least once per fold, a cut replay per linkage; wall and stage
+              seconds.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it holds the card's name and power limit as nvidia-smi prints them,
-and the one before that the kernels' JSON record, whose launch counts come
-from the flagship run (b). The full record goes to
-chiprun_out/chip_smoke.json. Without a CUDA device the script exits 1 and
-prints no result.
+and the one before that the kernels' JSON record: per kernel its launches
+in the run of phase 6 (b) (and, under launches_by_path, in the flagship run
+of phase 5 (b)), its largest difference from the plain version, its time,
+the plain version's, its bound and what bounds it. No single PyTorch call
+computes any of these functions, so library_ms is null. The full record
+goes to chiprun_out/chip_smoke.json. Without a CUDA device the script exits
+1 and prints no result; it imports nothing of JAX or of the JAX package and
+fails if either is loaded.
 """
 
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,6 +83,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_REPS = 20
 PLAIN_REPS = 3
+# the H100 SXM's memory rate and float32 rate outside the tensor cores
+# (NVIDIA's data sheet), for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 SEED_KW = dict(rN_seed=2103, exp_type="TPM")
 FLAGSHIP = dict(n_cells=50000, n_genes=27998, n_types=10, seed=0)
 FOLD, GROUP = 2000, 16
@@ -134,6 +159,17 @@ def _wmetac_problem(dev, cfg, y, n_pad, seed):
     return D[None].contiguous(), min(sim.total_occ, allc)
 
 
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, flops=0.0):
+    """The least time (ms) the card could take: bytes over the memory rate
+    or float32 operations over the float32 rate, whichever is larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def _hold_ward_and_cutree(name, D, n_real, record_rows, ncand=39):
     """Serial Ward and the cut replay on D against their plain versions."""
     import torch
@@ -152,7 +188,10 @@ def _hold_ward_and_cutree(name, D, n_real, record_rows, ncand=39):
     if not torch.equal(got.heights, ref.heights):
         raise AssertionError(f"{name}: heights differ from the plain loop (max abs {err})")
     nr = [n_real] * K
-    row = dict(shape=[K, n], n_real=n_real, ward_max_abs_err=err)
+    # D read once, merges and heights written once; n - 1 merge steps of
+    # about 10 float32 operations per column
+    bound, by = _bound(_nbytes(D, got.merges, got.heights), 10.0 * K * (n - 1) * n)
+    row = dict(shape=[K, n], n_real=n_real, ward_max_abs_err=err, ward_bound_ms=bound, ward_bound_by=by)
     row.update(_hold_cutree(name, got.merges, nr, ncand))
     row["ward_ms"] = _median_ms(lambda: ward_linkage_serial(D), KERNEL_REPS)
     row["ward_plain_ms"] = _median_ms(lambda: ward_linkage(D), PLAIN_REPS)
@@ -178,7 +217,9 @@ def _hold_cutree(name, merges, nr, ncand):
     torch.cuda.synchronize()
     if not torch.equal(snaps, snaps_ref):
         raise AssertionError(f"{name}: cut snapshots differ from the plain replay")
+    bound, by = _bound(_nbytes(merges, snaps) + 4 * len(nr))
     return dict(
+        cutree_bound_ms=bound, cutree_bound_by=by,
         cutree_max_abs_err=float((snaps - snaps_ref).abs().max()),
         cutree_ms=_median_ms(
             lambda: cutree_snapshots_kernel(merges, nr, minN=2, ncand=ncand), KERNEL_REPS
@@ -195,7 +236,7 @@ def _fold_group_distances(X, dev):
     -> (G*K, 2048, 2048) Pearson distances and the real counts."""
     import torch
 
-    from sharp_tpu.config import pad_dim, resolve_config
+    from sharp_tpu_torch.config import pad_dim, resolve_config
     from sharp_tpu_torch.ops.rp import rp_project_ensemble, ternary_rp_matrix
     from sharp_tpu_torch.ops.select import prep_distance
     from sharp_tpu_torch.utils.prng import fixed_generator
@@ -218,13 +259,8 @@ def _fold_group_distances(X, dev):
 def phase_kernels(dev, record, Xbig, ybig):
     import torch
 
-    from sharp_tpu.config import pad_dim, resolve_config
-    from sharp_tpu_torch.ops.linkage import (
-        rnn_ladder,
-        rnn_tail,
-        validate_merge_sequence,
-        ward_linkage_rnn,
-    )
+    from sharp_tpu_torch.config import pad_dim, resolve_config
+    from sharp_tpu_torch.ops.linkage import rnn_tail, validate_merge_sequence, ward_linkage_rnn
     from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
     from sharp_tpu_torch.ops.rp import rp_project_ensemble, ternary_rp_matrix
     from sharp_tpu_torch.ops.select import prep_distance
@@ -255,11 +291,19 @@ def phase_kernels(dev, record, Xbig, ybig):
     # --- large-tier shapes: the first fold group of the flagship block ------
     D, big_cfg = _fold_group_distances(Xbig, dev)
     L = D.shape[0]
-    tail = {}
+    tail, rounds, rounds_per_level, ladders = {}, {}, {}, {}
     links = {}
     for store_name, store in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        # the survivor state the ladder compacts the group down to
-        ladder = rnn_ladder(D, store_dtype=store)
+        # the ladder with kernel rounds, keeping the inputs of the first
+        # round at each level and the survivor state it compacts down to
+        ladder, first, per_level = _capture_rounds(D, store)
+        # the first round at the two largest levels (2048 and 1024 here)
+        rounds[store_name] = {
+            m: _hold_round(f"rnn_round {store_name} m={m}", first[m])
+            for m in sorted(first, reverse=True)[:2]
+        }
+        rounds_per_level[store_name] = per_level
+        del first
         args = ladder.tail_inputs()
         Cn = args[0].shape[-1]
         got = rnn_tail_kernel(*args)
@@ -271,50 +315,63 @@ def phase_kernels(dev, record, Xbig, ybig):
             if not torch.equal(a[valid], b[valid]):
                 raise AssertionError(f"rnn_tail {store_name}: {what} differs from the plain tail")
         err = float((got[2] - ref[2])[valid].abs().max())
-        # the whole ladder: ward_linkage_rnn (kernel tail) against the same
-        # rounds finished by the plain tail, on the card
-        link = ward_linkage_rnn(D, store_dtype=store)
-        plain_link = ladder.finish(*ref)
-        if not (torch.equal(link.merges, plain_link.merges) and torch.equal(link.heights, plain_link.heights)):
-            raise AssertionError(f"ladder {store_name}: the kernel tail and the plain tail disagree")
+        # the whole ladder: kernel rounds and kernel tail against the same
+        # rounds finished by the plain tail, and against plain rounds
+        link = ward_linkage_rnn(D, store_dtype=store, round_impl="pallas")
+        plain_tail = ladder.finish(*ref)
+        plain_rounds = ward_linkage_rnn(D, store_dtype=store, round_impl="xla")
+        for what, other in (("the plain tail", plain_tail), ("plain rounds", plain_rounds)):
+            if not (torch.equal(link.merges, other.merges) and torch.equal(link.heights, other.heights)):
+                raise AssertionError(f"ladder {store_name}: the kernels and {what} disagree")
+        del ladder, plain_tail, plain_rounds
         for lane in (0, L - 1):
             errs = validate_merge_sequence(link.merges[lane], link.heights[lane], FOLD, D.shape[-1])
             if errs:
                 raise AssertionError(f"ladder {store_name} lane {lane}: {errs}")
         links[store_name] = link
+        # D read once, (mi, mj, hh) written once; the state vectors read once
+        bound, by = _bound(_nbytes(*args, *got))
         tail[store_name] = dict(
             shape=[L, Cn], n_alive_min=int(n_alive.min()), n_alive_max=int(n_alive.max()),
-            max_abs_err=err,
+            max_abs_err=err, bound_ms=bound, bound_by=by,
             ms=_median_ms(lambda: rnn_tail_kernel(*args), KERNEL_REPS),
             plain_ms=_median_ms(lambda: rnn_tail(*args), PLAIN_REPS),
         )
         print(
             f"[kernels] rnn_tail {store_name} L={L} Cn={Cn} (n_alive {tail[store_name]['n_alive_min']}-"
             f"{tail[store_name]['n_alive_max']}): mi, mj, hh identical to the plain tail; the whole "
-            f"ladder identical with either tail; kernel {tail[store_name]['ms']:.3f} ms (plain "
-            f"{tail[store_name]['plain_ms']:.3f} ms)",
+            f"ladder identical with the plain tail and with plain rounds; kernel "
+            f"{tail[store_name]['ms']:.3f} ms (plain {tail[store_name]['plain_ms']:.3f} ms, bound "
+            f"{bound * 1e3:.2f} us); rounds per level {per_level}",
             flush=True,
         )
-    ladder_ms = {}
-    for store_name in ("f32", "bf16", "bf16", "f32"):
-        store = torch.float32 if store_name == "f32" else torch.bfloat16
-        ladder_ms.setdefault(store_name, []).append(
-            _median_ms(lambda: ward_linkage_rnn(D, store_dtype=store), 3)
+        del args, got, ref
+        # the whole ladder with plain rounds and with kernel rounds, in turns
+        turns = {}
+        for impl in ("xla", "pallas", "pallas", "xla"):
+            turns.setdefault(impl, []).append(
+                _median_ms(lambda: ward_linkage_rnn(D, store_dtype=store, round_impl=impl), 3)
+            )
+        ladders[store_name] = {impl: float(np.mean(v)) for impl, v in turns.items()}
+        ladders[store_name]["turns_ms"] = turns
+        print(
+            f"[kernels] ladder ({L}, {D.shape[-1]}) {store_name}: plain rounds {ladders[store_name]['xla']:.3f} ms, "
+            f"kernel rounds {ladders[store_name]['pallas']:.3f} ms (means of the medians of 3 in turns "
+            f"xla, pallas, pallas, xla: {turns})",
+            flush=True,
         )
-    ladder_ms = {k: float(np.mean(v)) for k, v in ladder_ms.items()}
-    print(
-        f"[kernels] ladder (80, 2048) with the tail kernel: f32 {ladder_ms['f32']:.3f} ms, "
-        f"bf16 {ladder_ms['bf16']:.3f} ms (medians of 3, turns f32, bf16, bf16, f32)",
-        flush=True,
-    )
-    record["ladder_80x2048_ms"] = ladder_ms
+        torch.cuda.empty_cache()
+    record["ladder_80x2048_ms"] = ladders
     record["rnn_tail"] = tail
+    record["rnn_round"] = {st: {str(m): row for m, row in r.items()} for st, r in rounds.items()}
+    record["rnn_round_rounds_per_level"] = {st: {str(m): c for m, c in r.items()} for st, r in rounds_per_level.items()}
     big = dict(_hold_cutree("cutree_80x2048", links["f32"].merges, [FOLD] * L, 39))
     big["shape"] = [L, D.shape[-1]]
     rows["cutree_80x2048"] = big
     print(
         f"[kernels] cutree_80x2048 on the ladder's merges: identical to the plain replay; "
-        f"{big['cutree_ms']:.3f} ms (plain {big['cutree_plain_ms']:.3f} ms)",
+        f"{big['cutree_ms']:.3f} ms (plain {big['cutree_plain_ms']:.3f} ms, bound "
+        f"{big['cutree_bound_ms'] * 1e3:.2f} us)",
         flush=True,
     )
     del D, links
@@ -322,32 +379,89 @@ def phase_kernels(dev, record, Xbig, ybig):
     _hold_ward_and_cutree("ward_wmetac_fold", D, n_real, rows)
     record["kernels"] = rows
     torch.cuda.empty_cache()
-    return rows, tail
+    return rows, tail, rounds
 
 
-def _counters():
-    from sharp_tpu_torch.ops.linkage_cuda import (
-        cutree_snapshots_kernel,
-        rnn_tail_kernel,
-        ward_linkage_serial,
+def _capture_rounds(D, store):
+    """The ladder over D with kernel rounds; returns the ladder (compacted
+    to its tail), copies of the inputs of the first round at each level
+    size, and the number of rounds per level."""
+    from sharp_tpu_torch.ops import linkage_cuda
+    from sharp_tpu_torch.ops.linkage import rnn_ladder
+
+    real = linkage_cuda.rnn_round_kernel
+    first, per_level = {}, {}
+
+    def spy(W, rows, colslot, dying):
+        m = W.shape[-1]
+        per_level[m] = per_level.get(m, 0) + 1
+        if m not in first:
+            first[m] = tuple(x.clone() for x in (W, rows, colslot, dying))
+        return real(W, rows, colslot, dying)
+
+    linkage_cuda.rnn_round_kernel = spy
+    try:
+        ladder = rnn_ladder(D, store_dtype=store, round_impl="pallas")
+    finally:
+        linkage_cuda.rnn_round_kernel = real
+    return ladder, first, per_level
+
+
+def _hold_round(name, inputs):
+    """The round kernel against `rnn_round_scatter` on one round's inputs:
+    identical matrix, row minima and argmins; times and the bound."""
+    import torch
+
+    from sharp_tpu_torch.ops.linkage import rnn_round_scatter
+    from sharp_tpu_torch.ops.linkage_cuda import rnn_round_kernel
+
+    W0, rows, colslot, dying = inputs
+    Wk, Wp = W0.clone(), W0.clone()
+    kmin, karg = rnn_round_kernel(Wk, rows, colslot, dying)
+    pmin, parg = rnn_round_scatter(Wp, rows, colslot, dying)
+    torch.cuda.synchronize()
+    if not torch.equal(Wk, Wp):
+        raise AssertionError(f"{name}: the matrix differs from the plain scatter")
+    if not (torch.equal(kmin, pmin) and torch.equal(karg, parg)):
+        raise AssertionError(f"{name}: the row cache differs from the plain version")
+    del Wp
+    L, m, _ = W0.shape
+    # W read once and written once; rows, colslot, dying read once; the
+    # row cache written once
+    bound, by = _bound(2 * _nbytes(W0) + _nbytes(rows, colslot, dying, kmin, karg))
+    # the scatter is idempotent: repeated launches on Wk repeat the same work
+    row = dict(
+        shape=[L, m, rows.shape[1]], dtype=str(W0.dtype), pairs=int((colslot >= 0).sum()),
+        dying=int(dying.sum()), max_abs_err=float((kmin - pmin).abs().max()),
+        bound_ms=bound, bound_by=by,
+        ms=_median_ms(lambda: rnn_round_kernel(Wk, rows, colslot, dying), KERNEL_REPS),
+        plain_ms=_median_ms(lambda: rnn_round_scatter(Wk, rows, colslot, dying), PLAIN_REPS),
     )
+    print(
+        f"[kernels] {name} L={L} P={rows.shape[1]} ({row['pairs']} pairs): matrix, row minima and "
+        f"argmins identical to the plain version; kernel {row['ms']:.3f} ms (plain "
+        f"{row['plain_ms']:.3f} ms, bound {bound:.3f} ms by {by}, {100 * bound / row['ms']:.1f}% of it)",
+        flush=True,
+    )
+    del Wk
+    torch.cuda.empty_cache()
+    return row
 
-    return {"ward_serial": ward_linkage_serial, "cutree": cutree_snapshots_kernel, "rnn_tail": rnn_tail_kernel}
 
-
-def _run_counted(X, **kw):
+def _run_counted(X, entry="sharp", **kw):
+    """One call of the port's `sharp` (or `sharp_unlimited`) with every
+    kernel's launch count set to 0 just before it and read just after."""
     import torch
 
     import sharp_tpu_torch
+    from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES
 
-    for fn in _counters().values():
-        fn.launches = 0
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
     t0 = time.perf_counter()
-    res = sharp_tpu_torch.sharp(X, **kw)
+    res = getattr(sharp_tpu_torch, entry)(X, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {name: fn.launches for name, fn in _counters().items()}
-    return res, wall, counts
+    return res, wall, dict(LAUNCHES)
 
 
 def _stages(res):
@@ -355,8 +469,8 @@ def _stages(res):
 
 
 def phase_slice(dev, record):
-    from sharp_tpu.analysis.ari import ari
-    from sharp_tpu.config import resolve_config
+    from sharp_tpu_torch.analysis.ari import ari
+    from sharp_tpu_torch.config import resolve_config
     from sharp_tpu_torch import carry
     from sharp_tpu_torch.core.pipeline import preprocess
     from synth import make_tpm_like
@@ -447,8 +561,8 @@ def _timed_parts(torch):
 def phase_large(dev, record, Xbig, ybig):
     import torch
 
-    from sharp_tpu.analysis.ari import ari
-    from sharp_tpu.config import resolve_config
+    from sharp_tpu_torch.analysis.ari import ari
+    from sharp_tpu_torch.config import resolve_config
     from sharp_tpu_torch import carry
     from sharp_tpu_torch.core.large import fold_sizes
     from sharp_tpu_torch.core.pipeline import preprocess
@@ -517,6 +631,10 @@ def phase_large(dev, record, Xbig, ybig):
             if counts["rnn_tail"] < math.ceil(T / GROUP):
                 raise AssertionError(f"flagship: the tail kernel ran {counts['rnn_tail']} times "
                                      f"for at least {math.ceil(T / GROUP)} fold groups")
+            # three ladder levels (2048, 1024, 512) of at least one round each
+            if counts["rnn_round"] < 3 * math.ceil(T / GROUP):
+                raise AssertionError(f"flagship: the round kernel ran {counts['rnn_round']} times "
+                                     f"for {math.ceil(T / GROUP)} fold groups of 3 levels")
             # wMetaC per fold + sMetaC: serial Ward; every opt_hclust: the cut replay
             if counts["ward_serial"] < T + 1 or counts["cutree"] < T + 1 + counts["rnn_tail"]:
                 raise AssertionError(f"flagship: wMetaC/sMetaC did not go through the kernels: {counts}")
@@ -539,6 +657,175 @@ def phase_large(dev, record, Xbig, ybig):
     out["flagship_50000x27998"] = runs
     record["large"] = out
     return main_counts
+
+
+# --- the streaming path ------------------------------------------------------
+# The flagship dataset of the bench's API path: 50,000-cell blocks of 27,998
+# genes, 38 planted types, 2,048 nonzero genes per cell (1,536 of the
+# cell's type's top genes and a random tail), CPM-scaled; type means from
+# seed 123, block b from seed 1000 + b. The generator is the bench's
+# (bench.py, `_api_type_means`, `_api_block_y`, `_api_gen_block`).
+API_GENES, API_TYPES, API_KEEP, API_BLOCK, API_BLOCKS = 27998, 38, 2048, 50000, 4
+
+
+def _api_type_means(G, n_types, keep):
+    grng = np.random.default_rng(123)
+    base = np.exp(1.0 + grng.standard_normal(G)).astype(np.float32)
+    de = grng.uniform(size=G) < 0.35
+    signs = grng.choice(np.asarray([-1.0, 1.0], np.float32), size=(n_types, G))
+    tm = (base * np.where(de, 2.0 ** (signs * 6.0), 1.0)).astype(np.float32)
+    n_top = (keep * 3) // 4
+    top = np.argsort(-tm, axis=1)[:, :n_top].astype(np.int32)
+    return tm, top, n_top
+
+
+def _api_block_y(bi, bn, n_types):
+    return np.random.default_rng(1000 + bi).integers(0, n_types, bn)
+
+
+def _api_gen_block(path, bi, bn, G, keep, tm, top, n_top):
+    import scipy.sparse as sp
+
+    from sharp_tpu_torch.io.native import write_sblk
+
+    rng = np.random.default_rng(1000 + bi)
+    y = rng.integers(0, tm.shape[0], bn)
+    tail = rng.integers(0, G, (bn, keep - n_top), dtype=np.int32)
+    cols = np.concatenate([top[y], tail], axis=1)
+    cols.sort(axis=1)
+    vals = tm[y[:, None], cols] * np.exp(0.3 * rng.standard_normal((bn, keep), dtype=np.float32))
+    vals *= 1e6 / vals.sum(axis=1, keepdims=True)
+    indptr = np.arange(bn + 1, dtype=np.int64) * keep
+    write_sblk(path, sp.csr_matrix((vals.ravel(), cols.ravel(), indptr), shape=(bn, G)), dtype_code=0)
+
+
+def _patched_rp(streaming, R):
+    """Inject the numpy matrix R (genes, K*p) as the streaming module's RP
+    matrix; returns the function to restore."""
+    import torch
+
+    real = streaming.ensemble_rp_matrix
+
+    def fixed(seed, K, m, p, dtype=torch.float32, device="cpu"):
+        if R.shape != (m, K * p):
+            raise ValueError(f"injected RP matrix {R.shape} for ({m}, {K * p})")
+        return torch.from_numpy(R).to(device, dtype)
+
+    streaming.ensemble_rp_matrix = fixed
+    return real
+
+
+def phase_unlimited(dev, record, tmp):
+    """(a) 3 SBLK blocks of 2,500 x 5,000 on the card (sparse feed and host
+    densify) and on the CPU with one injected RP matrix: identical labels.
+    (b) The first 4 blocks of the flagship dataset through sharp_unlimited,
+    as the bench's API path calls it, after an untimed warm-up on block 0
+    declaring the same n_cells: ARI >= 0.95, <= 57 clusters, launches."""
+    import torch
+
+    import sharp_tpu_torch
+    from sharp_tpu_torch.analysis.ari import ari
+    from sharp_tpu_torch.config import resolve_config
+    from sharp_tpu_torch.io.blocks import save_blocks
+    from sharp_tpu_torch.parallel import streaming
+    from synth import make_tpm_like
+
+    out = {}
+    # (a) card against CPU
+    n, genes = 7500, 5000
+    X, y = make_tpm_like(n_cells=n, n_genes=genes, n_types=10, seed=0)
+    small = os.path.join(tmp, "small")
+    save_blocks(small, [X[:2500], X[2500:5000], X[5000:]], fmt="sblk")
+    kw = dict(rN_seed=2103, resume=False)
+    cfg = resolve_config(n, genes, rN_seed=2103)
+    R = _ternary(np.random.default_rng(7500), genes, cfg.ensize_K * cfg.reduced_ndim)
+    real = _patched_rp(streaming, R)
+    try:
+        card, wall, counts = _run_counted(small, entry="sharp_unlimited", device=dev, **kw)
+        dense = sharp_tpu_torch.sharp_unlimited(small, device=dev, sparse_feed=False, **kw)
+        t0 = time.perf_counter()
+        cpu = sharp_tpu_torch.sharp_unlimited(small, device="cpu", **kw)
+        cpu_wall = time.perf_counter() - t0
+    finally:
+        streaming.ensemble_rp_matrix = real
+    same = np.array_equal(card.pred_clusters, cpu.pred_clusters)
+    same_feed = np.array_equal(card.pred_clusters, dense.pred_clusters)
+    print(
+        f"[unlimited] 3 x 2,500 x 5,000 SBLK blocks, one injected RP matrix: card vs CPU labels "
+        f"{'identical' if same else 'DIFFER'}, sparse feed vs host densify on the card "
+        f"{'identical' if same_feed else 'DIFFER'} ({card.N_pred_cluster} clusters, ARI vs types "
+        f"{ari(y, card.pred_clusters):.4f}); card {wall:.3f} s, CPU {cpu_wall:.3f} s, launches {counts}",
+        flush=True,
+    )
+    if not (same and same_feed):
+        raise AssertionError("unlimited (a): the card, the CPU and the two feeds disagree")
+    if min(counts.values()) < 1:
+        raise AssertionError(f"unlimited (a): a kernel was not launched: {counts}")
+    out["blocks_3x2500x5000"] = dict(
+        wall_s=wall, cpu_wall_s=cpu_wall, launches=counts, clusters=card.N_pred_cluster,
+        ari=ari(y, card.pred_clusters), stages=_stages(card),
+    )
+    shutil.rmtree(small)
+
+    # (b) the first 4 blocks of the flagship dataset, full width
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "flagship")
+    warm = os.path.join(tmp, "warm")
+    os.makedirs(data)
+    os.makedirs(warm)
+    tm, top, n_top = _api_type_means(API_GENES, API_TYPES, API_KEEP)
+    for bi in range(API_BLOCKS):
+        _api_gen_block(os.path.join(data, f"block_{bi:05d}.sblk"), bi, API_BLOCK, API_GENES,
+                       API_KEEP, tm, top, n_top)
+    n_cells = API_BLOCK * API_BLOCKS
+    with open(os.path.join(data, "blocks.json"), "w") as fh:
+        json.dump({"n_cells": n_cells, "n_genes": API_GENES, "n_blocks": API_BLOCKS}, fh)
+    os.symlink(os.path.join(data, "block_00000.sblk"), os.path.join(warm, "block_00000.sblk"))
+    y = np.concatenate([_api_block_y(bi, API_BLOCK, API_TYPES) for bi in range(API_BLOCKS)])
+    gen_s = time.perf_counter() - t0
+    sblk_bytes = sum(os.path.getsize(os.path.join(data, f)) for f in os.listdir(data))
+    print(f"[unlimited] flagship blocks: {API_BLOCKS} x {API_BLOCK} x {API_GENES}, "
+          f"{sblk_bytes / 1e9:.3f} GB of SBLK, made in {gen_s:.1f} s", flush=True)
+    api_kw = dict(
+        rN_seed=7, ensize_K=5, reduced_ndim=256, partition_ncells=2000,
+        dtype_compute="bfloat16", forview=False, resume=False, device=dev,
+    )
+    t0 = time.perf_counter()
+    sharp_tpu_torch.sharp_unlimited(warm, n_cells=n_cells, manifest_dir=None, **api_kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    res, wall, counts = _run_counted(data, entry="sharp_unlimited", **api_kw)
+    score = ari(y, res.pred_clusters)
+    stages = _stages(res)
+    T = math.ceil(API_BLOCK / 2000)          # folds per block
+    groups = API_BLOCKS * math.ceil(T / GROUP)
+    print(
+        f"[unlimited] flagship 4 blocks ({n_cells} cells): {res.N_pred_cluster} clusters, ARI "
+        f"{score:.4f}; wall {wall:.3f} s (warm-up on block 0 {warm_s:.3f} s), {n_cells / wall:.1f} "
+        f"cells/s; launches {counts}",
+        flush=True,
+    )
+    print(f"[unlimited] flagship stages (s): {json.dumps(stages)}", flush=True)
+    if score < 0.95 or res.N_pred_cluster > math.ceil(1.5 * API_TYPES):
+        raise AssertionError(f"unlimited (b): ARI {score:.4f} (>= 0.95), {res.N_pred_cluster} "
+                             f"clusters (<= {math.ceil(1.5 * API_TYPES)})")
+    # per fold group: 3 ladder levels and one tail; one wMetaC per fold;
+    # a cut replay per linkage
+    if counts["rnn_round"] < 3 * groups or counts["rnn_tail"] < groups:
+        raise AssertionError(f"unlimited (b): the ladder kernels ran too few times for {groups} "
+                             f"fold groups: {counts}")
+    if counts["ward_serial"] < API_BLOCKS * T:
+        raise AssertionError(f"unlimited (b): serial Ward ran fewer times than the {API_BLOCKS * T} "
+                             f"folds' wMetaC: {counts}")
+    if counts["cutree"] < counts["ward_serial"] + counts["rnn_tail"]:
+        raise AssertionError(f"unlimited (b): a linkage went without its cut replay: {counts}")
+    out["flagship_4x50000x27998"] = dict(
+        n_cells=n_cells, wall_s=wall, warm_s=warm_s, cells_per_s=n_cells / wall, ari=score,
+        clusters=res.N_pred_cluster, stages=stages, launches=counts, fold_groups=groups,
+        sblk_bytes=sblk_bytes, datagen_s=gen_s,
+    )
+    record["unlimited"] = out
+    return counts
 
 
 def main() -> int:
@@ -569,11 +856,18 @@ def main() -> int:
     record["data_s"] = time.perf_counter() - t
     print(f"[data] flagship block {Xbig.shape} made in {record['data_s']:.1f} s", flush=True)
 
-    rows, tail = phase_kernels(dev, record, Xbig, ybig)
+    rows, tail, rounds = phase_kernels(dev, record, Xbig, ybig)
     phase_slice(dev, record)
-    main_counts = phase_large(dev, record, Xbig, ybig)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    large_counts = phase_large(dev, record, Xbig, ybig)
+    del Xbig, ybig
+    tmp = tempfile.mkdtemp(prefix="sharp_smoke_")
+    try:
+        unl_counts = phase_unlimited(dev, record, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sharp_tpu"))
+    if loaded:
+        raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded[:10]}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -582,34 +876,34 @@ def main() -> int:
     record["nvidia_smi"] = smi
     record["total_s"] = time.perf_counter() - t0
     ward, cut = rows["ward_wmetac_fold"], rows["cutree_80x2048"]
+    r32 = rounds["f32"][max(rounds["f32"])]
+
+    def entry(name, replaces, err, ms, plain_ms, bound_ms, bound_by):
+        # launches: the main path of this slice, sharp_unlimited over the 4
+        # flagship blocks; launches_by_path adds the large tier's flagship run
+        return {
+            "name": name, "route": "cuda", "source": f"sharp_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": unl_counts[name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "launches_by_path": {"large": large_counts[name], "unlimited": unl_counts[name]},
+        }
+
     kernels = {
         "kernels": [
-            {
-                "name": "rnn_tail", "route": "cuda",
-                "source": "sharp_tpu_torch/csrc/rnn_tail.cu",
-                "replaces": "sharp_tpu/ops/linkage_pallas.py:659",
-                "launches": main_counts["rnn_tail"],
-                "max_abs_err": max(tail["f32"]["max_abs_err"], tail["bf16"]["max_abs_err"]),
-                "ms": tail["f32"]["ms"], "plain_ms": tail["f32"]["plain_ms"],
-            },
-            {
-                "name": "ward_serial", "route": "cuda",
-                "source": "sharp_tpu_torch/csrc/ward_serial.cu",
-                "replaces": "sharp_tpu/ops/linkage_pallas.py:993",
-                "launches": main_counts["ward_serial"],
-                "max_abs_err": ward["ward_max_abs_err"],
-                "ms": ward["ward_ms"], "plain_ms": ward["ward_plain_ms"],
-            },
-            {
-                "name": "cutree", "route": "cuda",
-                "source": "sharp_tpu_torch/csrc/cutree.cu",
-                "replaces": "sharp_tpu/ops/linkage_pallas.py:953",
-                "launches": main_counts["cutree"],
-                "max_abs_err": cut["cutree_max_abs_err"],
-                "ms": cut["cutree_ms"], "plain_ms": cut["cutree_plain_ms"],
-            },
+            entry("rnn_round", "sharp_tpu/ops/linkage_pallas.py:854",
+                  max(r["max_abs_err"] for st in rounds.values() for r in st.values()),
+                  r32["ms"], r32["plain_ms"], r32["bound_ms"], r32["bound_by"]),
+            entry("rnn_tail", "sharp_tpu/ops/linkage_pallas.py:659",
+                  max(tail["f32"]["max_abs_err"], tail["bf16"]["max_abs_err"]),
+                  tail["f32"]["ms"], tail["f32"]["plain_ms"], tail["f32"]["bound_ms"], tail["f32"]["bound_by"]),
+            entry("ward_serial", "sharp_tpu/ops/linkage_pallas.py:993", ward["ward_max_abs_err"],
+                  ward["ward_ms"], ward["ward_plain_ms"], ward["ward_bound_ms"], ward["ward_bound_by"]),
+            entry("cutree", "sharp_tpu/ops/linkage_pallas.py:953", cut["cutree_max_abs_err"],
+                  cut["cutree_ms"], cut["cutree_plain_ms"], cut["cutree_bound_ms"], cut["cutree_bound_by"]),
         ]
     }
+    record["kernels_line"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -7,10 +7,12 @@ by hand for Hopper (`csrc/`), built by `nvcc` at first use.
 
     sharp(X, ..., device="cuda")   ~ SHARP()
     run_mtimes(...)                ~ run_Mtimes_SHARP
+    sharp_unlimited(blocks, ...)   ~ SHARP_unlimited (blocks in memory or SBLK files)
     get_opt_hclust(...)            ~ get_opt_hclust
 
-The port imports no JAX. Of the JAX package it uses only the jax-free
-modules `sharp_tpu.config`, `sharp_tpu.types` and `sharp_tpu.analysis.ari`.
+The port imports nothing of JAX and nothing of the JAX package: it keeps
+its own copies of the numpy-only modules it needs (`config`, `types`,
+`analysis/ari`).
 
 Float32 matrix products must be full float32 (`ops/distance.py`): TF32 is
 turned off for matmuls and cuDNN here, on import.

@@ -11,7 +11,11 @@ fold and sMetaC across folds. Ward linkage goes through the serial Ward
 kernel up to a padded size of 1024 and through the reciprocal-NN ladder
 with its tail kernel above. What is not ported yet raises
 `NotImplementedError` with its ROADMAP.md entry: several devices
-(`n_devices > 1`), the `pallas_bf16` backend and `sharp_unlimited`.
+(`n_devices > 1`, `multihost`) and the `pallas_bf16` backend.
+
+`sharp_unlimited` (from `parallel/streaming.py`) streams blocks (in memory
+or SBLK files) through the fold pass of the large tier, one sMetaC fuse
+per block and one global sMetaC over the block clusters.
 """
 
 from __future__ import annotations
@@ -21,11 +25,12 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from sharp_tpu.config import pad_dim, resolve_config
-from sharp_tpu.types import SharpResult
+from sharp_tpu_torch.config import pad_dim, resolve_config
+from sharp_tpu_torch.types import SharpResult
 from sharp_tpu_torch.core.large import sharp_large
 from sharp_tpu_torch.core.pipeline import TestlogProbe, preprocess, sharp_small
 from sharp_tpu_torch.ops.linkage import resolve_linkage_backend
+from sharp_tpu_torch.parallel.streaming import sharp_unlimited  # re-exported
 from sharp_tpu_torch.utils.prng import resolve_seed
 from sharp_tpu_torch.utils.timers import StageTimer
 
@@ -62,7 +67,7 @@ def sharp(
     `base_ncells`, `partition_ncells`, `N_cluster`, `minN_cluster`,
     `maxN_cluster`, `sil_thre`, `height_Ntimes`, `prep`, `logflag`,
     `exp_type`, `rN_seed`, `forview`, `linkage_backend`, ...) with the JAX
-    package's auto-defaults (`sharp_tpu.config`), and dispatches the small
+    package's auto-defaults (`sharp_tpu_torch.config`), and dispatches the small
     or the large tier on `base_ncells` as the reference does
     (R/SHARP.R:251-280).
 
@@ -127,15 +132,6 @@ def sharp(
     )
 
 
-def sharp_unlimited(*args, **kwargs) -> SharpResult:
-    """Blocked / out-of-core path (~ SHARP_unlimited): not ported yet."""
-    raise NotImplementedError(
-        "sharp_unlimited is not ported yet: it needs the streaming path "
-        "and the per-block fuse (ROADMAP.md, Queue 1 item 8, 'io/sparse.py, "
-        "parallel/streaming.py -> sharp_unlimited')"
-    )
-
-
 def run_mtimes(
     X: np.ndarray,
     mtimes: int = 5,
@@ -160,7 +156,7 @@ def summarize_mtimes(grid, truth=None) -> dict:
     """Stability summary of a `run_mtimes` grid: per-K cluster-count
     distribution, mean pairwise ARI between runs, and accuracy vs `truth`
     when given (R/run_Mtimes_SHARP.R:20-60)."""
-    from sharp_tpu.analysis.ari import ari
+    from sharp_tpu_torch.analysis.ari import ari
 
     summary = {}
     for row in grid:

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 
-from sharp_tpu.config import SharpConfig
+from sharp_tpu_torch.config import SharpConfig
 from sharp_tpu_torch.core.block import cluster_block_ensemble
 from sharp_tpu_torch.core.wmetac import wmetac
 

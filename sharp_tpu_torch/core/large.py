@@ -22,8 +22,8 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from sharp_tpu.config import SharpConfig, pad_dim
-from sharp_tpu.types import SharpResult, finalize_labels
+from sharp_tpu_torch.config import SharpConfig, pad_dim
+from sharp_tpu_torch.types import SharpResult, finalize_labels
 from sharp_tpu_torch.core.pipeline import TestlogProbe, resolve_log_transform
 from sharp_tpu_torch.core.smetac import smetac, smetac_range
 from sharp_tpu_torch.ops.rp import ensemble_rp_matrix

@@ -13,8 +13,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from sharp_tpu.config import SharpConfig, pad_dim
-from sharp_tpu.types import SharpResult, finalize_labels
+from sharp_tpu_torch.config import SharpConfig, pad_dim
+from sharp_tpu_torch.types import SharpResult, finalize_labels
 from sharp_tpu_torch.core.block import cluster_block_ensemble
 from sharp_tpu_torch.core.fold import _allc_pad
 from sharp_tpu_torch.core.wmetac import wmetac

@@ -27,7 +27,7 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("ward_serial.cu", "cutree.cu", "rnn_tail.cu")
+SOURCES = ("ward_serial.cu", "cutree.cu", "rnn_tail.cu", "rnn_round.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -52,6 +52,11 @@ _SIGNATURES = {
     "rnn_tail.cu": {
         "sharp_rnn_tail_launch": (
             _INT, [_VOID_P] * 8 + [_INT, _INT, _INT, _VOID_P]
+        ),
+    },
+    "rnn_round.cu": {
+        "sharp_rnn_round_launch": (
+            _INT, [_VOID_P] * 6 + [_INT, _INT, _INT, _INT, _VOID_P]
         ),
     },
 }

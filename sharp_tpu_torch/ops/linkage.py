@@ -12,14 +12,16 @@ Counterpart of `sharp_tpu/ops/linkage.py`. The reference bottoms out in
   * `cutree_multi` replays the merge sequence once and snapshots the labels
     at every candidate k in [minN, minN+ncand).
   * `ward_linkage_rnn` is the reciprocal-nearest-neighbour ladder for
-    large problems: rounds merge every mutual-NN pair at once, a size
+    large problems: rounds merge every mutual-NN pair at once (each round's
+    scatter and the next round's row cache in `rnn_round_scatter`), a size
     ladder compacts the survivors, and `rnn_tail` drains the last
     compacted subproblem in strict serial order.
 
-`ward_linkage`, `cutree_snapshots` and `rnn_tail` are the plain versions of
-the hand-written kernels in `ops/linkage_cuda.py` (`ward_linkage_serial`,
-`cutree_multi_kernel`, `rnn_tail_kernel`): the CPU runs them, and the
-card's run is held against them.
+`ward_linkage`, `cutree_snapshots`, `rnn_round_scatter` and `rnn_tail` are
+the plain versions of the hand-written kernels in `ops/linkage_cuda.py`
+(`ward_linkage_serial`, `cutree_multi_kernel`, `rnn_round_kernel`,
+`rnn_tail_kernel`): the CPU runs them, and the card's run is held against
+them.
 """
 
 from __future__ import annotations
@@ -93,8 +95,8 @@ def resolve_linkage_backend(backend: str, n_pad: int, hmethod: str = "ward.D") -
     if backend == "pallas_bf16":
         raise NotImplementedError(
             "linkage backend 'pallas_bf16' (serial Ward with bf16 storage) is "
-            "not ported yet (ROADMAP.md, Queue 2); 'rnn_bf16' stores bf16 on "
-            "the ladder"
+            "not ported yet (ROADMAP.md, Queue 1, head); 'rnn_bf16' stores bf16 "
+            "on the ladder"
         )
     if backend not in ("auto", "xla", "pallas", "rnn", "rnn_bf16"):
         raise ValueError(f"unknown linkage backend {backend!r}")
@@ -233,6 +235,54 @@ def rnn_tail(
     return mi, mj, hh
 
 
+def _round_scatter_(W, rows, colslot, dying) -> None:
+    """One ladder round's scatter, in place on W (L, m, m): a dying row or
+    column becomes BIG; the survivor row r becomes rows[colslot[r], :] and
+    the survivor column c of any other row r becomes rows[colslot[c], r];
+    every other entry keeps its value."""
+    L, m, _ = W.shape
+    cola = colslot >= 0
+    cs = colslot.clamp_min(0).long()
+    full = rows.gather(1, cs[:, :, None].expand(L, m, m))   # full[l, r, c] = rows[l, cs[r], c]
+    torch.where(cola[:, None, :], full.transpose(1, 2), W, out=W)
+    torch.where(cola[:, :, None], full, W, out=W)
+    del full
+    dy = dying.bool()
+    W.masked_fill_(dy[:, :, None] | dy[:, None, :], torch.tensor(BIG, dtype=W.dtype, device=W.device))
+
+
+def rnn_round_scatter(
+    W: torch.Tensor, rows: torch.Tensor, colslot: torch.Tensor, dying: torch.Tensor
+):
+    """One ladder round's scatter and the next round's row cache.
+
+    Plain version of `rnn_round_kernel`, the port of the TPU kernel
+    `_round_scatter_kernel` (sharp_tpu/ops/linkage_pallas.py:683-758).
+    W (L, m, m) float32 or bfloat16 storage is updated in place (see
+    `_round_scatter_`); rows (L, P, m) in W's dtype are the pairs' fresh
+    rows, colslot (L, m) integer holds -1 or the pair slot whose survivor
+    is column c, dying (L, m) bool or 0/1 marks the clusters merged away.
+    Returns rowmin (L, m) float32 and rowarg (L, m) int64: each row's
+    minimum over the stored values and the first index that holds it.
+    """
+    _round_scatter_(W, rows, colslot, dying)
+    rowmin, rowarg = W.min(dim=2)
+    return rowmin.float(), rowarg
+
+
+ROUND_IMPLS = ("auto", "xla", "pallas")
+
+
+def _round_fused(round_impl: str) -> bool:
+    """Whether the ladder's rounds go through the round kernel: "auto" and
+    "pallas" do (`rnn_round_kernel`, which takes its plain version for a
+    CPU tensor); "xla" keeps the rounds in plain PyTorch, each round
+    computing its row cache from the matrix."""
+    if round_impl not in ROUND_IMPLS:
+        raise ValueError(f"unknown round_impl {round_impl!r} (one of {ROUND_IMPLS})")
+    return round_impl != "xla"
+
+
 def _append(merges, heights, cnt, ga, gb, hrec, valid) -> None:
     """Write the merges (ga, gb, hrec) (L, S) of the valid slots into
     merges (L, n, 2) / heights (L, n) at each lane's offset cnt, in slot
@@ -266,6 +316,9 @@ class RnnLadder:
         self.heights = torch.zeros((L, n), dtype=torch.float32, device=dev)
         self.cnt = torch.zeros(L, dtype=torch.long, device=dev)
         self.rounds = torch.zeros(L, dtype=torch.long, device=dev)
+        # (rowmin float32, rowarg int64) of D, carried from a fused round
+        # to the next; None makes the next round compute it from D
+        self.rowcache = None
 
     def tail_inputs(self):
         """(D, alive, sizes, gidx, lasth) of the compacted subproblem, as
@@ -284,10 +337,18 @@ class RnnLadder:
         merges = merges[:, : n - 1].gather(1, order[:, :, None].expand(L, n - 1, 2))
         return LinkageResult(merges, heights)
 
-    def round(self, active: torch.Tensor, P: int) -> None:
+    def round(self, active: torch.Tensor, P: int, fused: bool = True) -> None:
         """One round on the lanes flagged `active`: merge up to P mutual
         nearest-neighbour pairs per lane (sharp_tpu/ops/linkage.py:612-767,
-        with the one-hot contractions written as direct indexing)."""
+        with the one-hot contractions written as direct indexing).
+
+        The row minima and first-index argmins come from the cache the
+        previous fused round carried forward, or from D at the first round
+        of a level. `fused` scatters through `rnn_round_kernel`, which also
+        returns the next round's cache; otherwise the plain scatter runs
+        and the next round reads D again. Frozen lanes have no pairs: the
+        scatter leaves their rows, and so their cache, as they are.
+        """
         W = self.D
         L, m, _ = W.shape
         dev = W.device
@@ -295,8 +356,11 @@ class RnnLadder:
         ar = torch.arange(m, device=dev)
         arP = torch.arange(P, device=dev)
         # row min and first-index argmin over the stored values
-        rowmin_st, nn = W.min(dim=2)
-        rowmin = rowmin_st.float()
+        if self.rowcache is None:
+            rowmin_st, nn = W.min(dim=2)
+            rowmin = rowmin_st.float()
+        else:
+            rowmin, nn = self.rowcache
         mutual = (nn.gather(1, nn) == ar) & self.alive & (rowmin < 0.5 * BIG)
         lead = mutual & (ar < nn) & active[:, None]
         # the first P leads of each lane, in index order
@@ -349,12 +413,14 @@ class RnnLadder:
         )
 
         # survivors' rows and columns take their fresh rows; dying ones die
-        full = rows_st.gather(1, cs[:, :, None].expand(L, m, m))
-        W = torch.where(cola[:, None, :], full.transpose(1, 2), W)
-        torch.where(cola[:, :, None], full, W, out=W)
-        del full
-        W.masked_fill_(dying[:, :, None] | dying[:, None, :], self.big)
-        self.D = W
+        colslot = colslot.to(torch.int32).contiguous()
+        if fused:
+            from sharp_tpu_torch.ops.linkage_cuda import rnn_round_kernel
+
+            self.rowcache = rnn_round_kernel(W, rows_st, colslot, dying.contiguous())
+        else:
+            _round_scatter_(W, rows_st, colslot, dying)
+            self.rowcache = None
         self.alive = self.alive & ~dying
         self.sizes = self.sizes + torch.where(cola, nb.gather(1, cs), 0.0)
 
@@ -391,6 +457,7 @@ class RnnLadder:
         self.gidx = torch.where(svC, self.gidx.gather(1, surv), 0)
         self.lasth = torch.where(svC, self.lasth.gather(1, surv), 0.0)
         self.rounds.zero_()
+        self.rowcache = None
 
 
 def rnn_ladder(
@@ -398,10 +465,12 @@ def rnn_ladder(
     pair_cap: int = 128,
     store_dtype: Optional[torch.dtype] = None,
     compact_n: int = 256,
+    round_impl: str = "auto",
 ) -> RnnLadder:
     """The rounds of the reciprocal-NN ladder over D (L, n, n), down to the
     compacted subproblem of at most `compact_n` clusters per lane that the
-    tail drains (sharp_tpu/ops/linkage.py:817-837).
+    tail drains (sharp_tpu/ops/linkage.py:817-837). `round_impl` picks the
+    rounds' scatter (`_round_fused`).
 
     Ward's recurrence is reducible, so every mutual-NN pair can merge in
     one round. At each level, rounds run only until a lane's survivors fit
@@ -414,6 +483,7 @@ def rnn_ladder(
     st = store_dtype if store_dtype is not None else D.dtype
     if st not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the ladder stores float32 or bfloat16, got {st}")
+    fused = _round_fused(round_impl)
     C = min(compact_n, n)
     s = RnnLadder(D, st)
     lvl = n
@@ -424,7 +494,7 @@ def rnn_ladder(
             active = (s.cnt < n - 1) & (s.alive.sum(dim=1) > nxt) & (s.rounds < n)
             if not bool(active.any()):
                 break
-            s.round(active, P)
+            s.round(active, P, fused)
         s.compact(nxt)
         lvl = nxt
     return s
@@ -436,6 +506,7 @@ def ward_linkage_rnn(
     store_dtype: Optional[torch.dtype] = None,
     compact_n: int = 256,
     compact_cap: int = 32,
+    round_impl: str = "auto",
 ) -> LinkageResult:
     """ward.D agglomeration by reciprocal-nearest-neighbour rounds over D
     (L, n, n) or (n, n): the port of `sharp_tpu/ops/linkage.py:
@@ -447,14 +518,20 @@ def ward_linkage_rnn(
     recorded heights, which are clamped to each cluster's previous record.
 
     `store_dtype` (float32 or bfloat16, default D's dtype) is the matrix
-    storage; the Lance-Williams arithmetic stays float32. `compact_cap` is
-    accepted for signature parity: it sizes the JAX package's round-based
-    tail, which the serial tail replaces.
+    storage; the Lance-Williams arithmetic stays float32. `round_impl`
+    takes the JAX package's names: "xla" keeps the rounds in plain
+    PyTorch; "pallas" scatters each round through `rnn_round_kernel`
+    (its plain version on a CPU tensor), which also carries the row cache
+    to the next round; "auto" is "pallas" (the TPU kept its fused round
+    opt-in for a cost of its own compiler, which does not apply here). The
+    output is identical either way. `compact_cap` is accepted for
+    signature parity: it sizes the JAX package's round-based tail, which
+    the serial tail replaces.
     """
     from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
 
     squeeze = D.dim() == 2
-    ladder = rnn_ladder(D[None] if squeeze else D, pair_cap, store_dtype, compact_n)
+    ladder = rnn_ladder(D[None] if squeeze else D, pair_cap, store_dtype, compact_n, round_impl)
     link = ladder.finish(*rnn_tail_kernel(*ladder.tail_inputs()))
     return LinkageResult(link.merges[0], link.heights[0]) if squeeze else link
 

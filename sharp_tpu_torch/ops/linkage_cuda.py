@@ -1,17 +1,19 @@
-"""Wrappers of the hand-written Hopper kernels: serial Ward, the ladder tail and the cut replay.
+"""Wrappers of the hand-written Hopper kernels: serial Ward, the ladder's
+rounds and tail, and the cut replay.
 
-Counterpart of `sharp_tpu/ops/linkage_pallas.py`, with the same public
-names where a TPU kernel has a port:
+Counterpart of `sharp_tpu/ops/linkage_pallas.py`; each TPU kernel has its
+port:
 
     ward_linkage_pallas  -> ward_linkage_serial   (csrc/ward_serial.cu)
     cutree_multi_pallas  -> cutree_multi_kernel   (csrc/cutree.cu)
     rnn_tail_pallas      -> rnn_tail_kernel       (csrc/rnn_tail.cu)
+    rnn_round_scatter    -> rnn_round_kernel      (csrc/rnn_round.cu)
 
 A wrapper launches its kernel for a CUDA tensor and takes the kernel's
 plain version (`ops/linkage.py`) only for a CPU tensor; any other device,
 dtype, shape or layout raises. Launches go on the current CUDA stream and
-do not synchronise. Each launching wrapper counts its launches in a plain
-integer attribute, `<wrapper>.launches`.
+do not synchronise. Each wrapper adds one to its kernel's entry of
+`LAUNCHES` where it launches the kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from sharp_tpu_torch.ops.linkage import (
     LinkageResult,
     cut_forest,
     cutree_snapshots,
+    rnn_round_scatter,
     rnn_tail,
     ward_linkage,
     counts_per_problem,
@@ -34,6 +37,9 @@ CUTREE_MAX_N = 4096
 # the tail kernel drains one lane per thread block of at most 1024 threads
 RNN_TAIL_MAX_N = 1024
 _TAIL_STORE = {torch.float32: 0, torch.bfloat16: 1}
+# launches of each kernel, keyed by the kernel's name; owned by this module,
+# so a wrapper replaced by a test double does not take the count with it
+LAUNCHES = dict.fromkeys(("ward_serial", "cutree", "rnn_tail", "rnn_round"), 0)
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -81,13 +87,10 @@ def ward_linkage_serial(D: torch.Tensor) -> LinkageResult:
         W.data_ptr(), merges.data_ptr(), heights.data_ptr(), K, n, _stream()
     )
     _check_rc(rc, "ward_serial")
-    ward_linkage_serial.launches += 1
+    LAUNCHES["ward_serial"] += 1
     if squeeze:
         return LinkageResult(merges[0], heights[0])
     return LinkageResult(merges, heights)
-
-
-ward_linkage_serial.launches = 0
 
 
 def rnn_tail_kernel(
@@ -132,11 +135,60 @@ def rnn_tail_kernel(
         L, Cn, _TAIL_STORE[D.dtype], _stream(),
     )
     _check_rc(rc, "rnn_tail")
-    rnn_tail_kernel.launches += 1
+    LAUNCHES["rnn_tail"] += 1
     return mi, mj, hh
 
 
-rnn_tail_kernel.launches = 0
+# gridDim.y of the round kernel holds the lanes
+RNN_ROUND_MAX_L = 65535
+
+
+def rnn_round_kernel(
+    W: torch.Tensor, rows: torch.Tensor, colslot: torch.Tensor, dying: torch.Tensor
+):
+    """One ladder round's scatter on W (L, m, m), float32 or bfloat16
+    storage, updated in place, and the next round's row cache.
+
+    rows (L, P, m) in W's dtype, colslot (L, m) int32 (-1, or the pair slot
+    whose survivor is column c), dying (L, m) bool or uint8. Returns rowmin
+    (L, m) float32 and rowarg (L, m) int64, the first index of each row's
+    minimum over the stored values. Same contract as
+    `ops.linkage.rnn_round_scatter`, and identical output.
+    """
+    if _device_kind(W) == "cpu":
+        return rnn_round_scatter(W, rows, colslot, dying)
+    if W.dtype not in _TAIL_STORE:
+        raise TypeError(f"rnn_round_kernel stores float32 or bfloat16, got {W.dtype}")
+    if W.dim() != 3 or W.shape[1] != W.shape[2] or not W.is_contiguous():
+        raise ValueError(f"rnn_round_kernel takes a contiguous W (L, m, m), got {tuple(W.shape)}")
+    L, m, _ = W.shape
+    if not 1 <= L <= RNN_ROUND_MAX_L:
+        raise ValueError(f"rnn_round_kernel takes 1 <= L <= {RNN_ROUND_MAX_L}, got {L}")
+    if (rows.dtype != W.dtype or rows.dim() != 3 or rows.shape[0] != L or rows.shape[2] != m
+            or rows.shape[1] < 1 or not rows.is_contiguous() or rows.device != W.device):
+        raise ValueError(
+            f"rnn_round_kernel takes rows (L, P, m) = ({L}, P, {m}) {W.dtype}, contiguous, on "
+            f"{W.device}; got {tuple(rows.shape)} {rows.dtype} on {rows.device}"
+        )
+    for name, x, dts in (("colslot", colslot, (torch.int32,)),
+                         ("dying", dying, (torch.bool, torch.uint8))):
+        if x.dtype not in dts or tuple(x.shape) != (L, m) or not x.is_contiguous() or x.device != W.device:
+            raise ValueError(
+                f"rnn_round_kernel takes {name} ({L}, {m}) {dts}, contiguous, on {W.device}; got "
+                f"{tuple(x.shape)} {x.dtype} on {x.device}"
+            )
+    from sharp_tpu_torch.ops._build import load_kernels
+
+    lib = load_kernels()["rnn_round.cu"]
+    rowmin = torch.empty((L, m), dtype=torch.float32, device=W.device)
+    rowarg = torch.empty((L, m), dtype=torch.int64, device=W.device)
+    rc = lib.sharp_rnn_round_launch(
+        W.data_ptr(), rows.data_ptr(), colslot.data_ptr(), dying.data_ptr(),
+        rowmin.data_ptr(), rowarg.data_ptr(), L, m, rows.shape[1], _TAIL_STORE[W.dtype], _stream(),
+    )
+    _check_rc(rc, "rnn_round")
+    LAUNCHES["rnn_round"] += 1
+    return rowmin, rowarg
 
 
 def cutree_snapshots_kernel(
@@ -167,11 +219,8 @@ def cutree_snapshots_kernel(
         merges.data_ptr(), nr.data_ptr(), snaps.data_ptr(), G, n, minN, ncand, _stream()
     )
     _check_rc(rc, "cutree")
-    cutree_snapshots_kernel.launches += 1
+    LAUNCHES["cutree"] += 1
     return snaps
-
-
-cutree_snapshots_kernel.launches = 0
 
 
 def cutree_multi_kernel(

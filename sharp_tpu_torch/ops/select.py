@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from sharp_tpu.config import pad_dim
+from sharp_tpu_torch.config import pad_dim
 from sharp_tpu_torch.ops.distance import (
     PAD_PAD_DIST,
     _unit_rows,

@@ -9,6 +9,7 @@ R/SHARP.R:497). Here each role gets its own generator, seeded from
     member_generator(seed, k)   # RP member k
     shuffle_generator(seed)     # cell permutation
     testlog_generator(seed)     # log-decision probe subset
+    view_generator(seed)        # the shared 50-dim view projection of sharp_unlimited
 
 A generator lives on the device it draws for: a CUDA generator gives other
 numbers than a CPU one from the same seed, and neither reproduces the JAX
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 _MEMBER, _SHUFFLE, _TESTLOG = 1000, 1, 2
+_VIEW = 0x56494557  # "VIEW", the JAX package's fold_in tag of the same role
 
 
 def resolve_seed(rN_seed: Optional[int]) -> int:
@@ -53,6 +55,13 @@ def shuffle_generator(rN_seed: int, device) -> torch.Generator:
 
 def testlog_generator(rN_seed: int, device) -> torch.Generator:
     return _generator((rN_seed, _TESTLOG), device)
+
+
+def view_generator(rN_seed: int, device) -> torch.Generator:
+    """Stream of the forview matrix: the one ternary RP that projects
+    every block's viE to 50 view dimensions above 1e5 cells
+    (R/SHARP_unlimited.R:216-235)."""
+    return _generator((rN_seed, _VIEW), device)
 
 
 def fixed_generator(seed: int, device) -> torch.Generator:

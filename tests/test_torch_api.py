@@ -1,5 +1,6 @@
-"""The port's entry points on the CPU: no JAX import, explicit devices, both
-tiers, and loud refusals for what is not ported yet."""
+"""The port's entry points on the CPU: no import of JAX or of the JAX
+package, explicit devices, both tiers and the streaming path, and loud
+refusals for what is not ported yet."""
 
 import os
 import shutil
@@ -27,25 +28,86 @@ def _python(code, cwd=REPO, timeout=300):
 
 
 def test_port_runs_without_importing_jax():
-    """tests/conftest.py imports jax, so this runs in a fresh interpreter."""
+    """Both tiers of sharp() and sharp_unlimited() over SBLK files on the
+    CPU load no module of JAX and none of the JAX package (tests/conftest.py
+    imports jax, so this runs in a fresh interpreter)."""
     code = (
-        "import sys\n"
+        "import sys, tempfile\n"
         "sys.path.insert(0, 'tests')\n"
         "import sharp_tpu_torch\n"
+        "from sharp_tpu_torch.io.blocks import save_blocks\n"
         "from synth import make_tpm_like\n"
         "X, y = make_tpm_like(n_cells=120, n_genes=200, n_types=3, seed=1)\n"
         "res = sharp_tpu_torch.sharp(X, rN_seed=3, ensize_K=3, device='cpu')\n"
         "big = sharp_tpu_torch.sharp(X, rN_seed=3, ensize_K=3, base_ncells=100,\n"
         "                            partition_ncells=60, device='cpu')\n"
+        "d = tempfile.mkdtemp()\n"
+        "save_blocks(d, [X[:70], X[70:]], fmt='sblk')\n"
+        "unl = sharp_tpu_torch.sharp_unlimited(d, rN_seed=3, ensize_K=3, partition_ncells=40,\n"
+        "                                      resume=False, device='cpu')\n"
         "import sharp_tpu_torch.carry, sharp_tpu_torch.ops.linkage_cuda\n"
         "assert len(res.pred_clusters) == 120 and big.folds.max() == 1\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "assert len(unl.pred_clusters) == 120\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'sharp_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'sharp_tpu.')))\n"
         "assert not bad, bad\n"
-        "print('ok', res.N_pred_cluster)\n"
+        "print('ok', res.N_pred_cluster, unl.N_pred_cluster)\n"
     )
     out = _python(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_port_source_imports_nothing_of_the_jax_package():
+    """No module of the port and not chip_smoke.py names the JAX package in
+    an import."""
+    import re
+
+    pat = re.compile(r"^\s*(import sharp_tpu\b(?!_torch)|from sharp_tpu[ .](?!_torch))", re.M)
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "sharp_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    bad = [p for p in paths if pat.search(open(p).read())]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("n,genes,knobs", [
+    (479, 20000, {}),
+    (6000, 5000, {"exp_type": "TPM", "rN_seed": 2103}),
+    (200_000, 27998, {"ensize_K": 5, "reduced_ndim": 256, "partition_ncells": 2000,
+                      "dtype_compute": "bfloat16", "forview": False}),
+    (1_306_127, 27998, {"maxN_cluster": 30, "base_ncells": 300, "logflag": True, "n_cores": 4}),
+])
+def test_config_matches_the_jax_package(n, genes, knobs):
+    """The port's resolve_config echoes the JAX package's, field for field
+    (results carry it as `paras`)."""
+    from sharp_tpu.config import pad_dim as j_pad_dim
+    from sharp_tpu.config import resolve_config as j_resolve
+    from sharp_tpu_torch.config import pad_dim, resolve_config
+
+    ours = resolve_config(n, genes, **knobs)
+    assert ours.as_dict() == j_resolve(n, genes, **knobs).as_dict()
+    assert ours.is_small == (n < ours.base_ncells)
+    for k in (1, 8, 9, 500, 513, 1000, 2049):
+        assert pad_dim(k) == j_pad_dim(k)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ari_and_labels_match_the_jax_package(seed):
+    from sharp_tpu.analysis.ari import rand_metrics as j_rand
+    from sharp_tpu.types import finalize_labels as j_finalize
+    from sharp_tpu_torch.analysis.ari import ari, rand_metrics
+    from sharp_tpu_torch.types import finalize_labels
+
+    rng = np.random.default_rng(seed)
+    truth = rng.integers(0, 5, 300)
+    pred = np.where(rng.random(300) < 0.8, truth, rng.integers(0, 7, 300))
+    assert rand_metrics(truth, pred) == j_rand(truth, pred)
+    assert ari(truth, truth) == 1.0
+    raw = rng.integers(0, 12, 20000)
+    raw[:3] = 40
+    for tiny in (False, True):
+        np.testing.assert_array_equal(finalize_labels(raw, tiny), j_finalize(raw, tiny))
 
 
 def test_large_tier_raises():
@@ -67,7 +129,7 @@ def test_small_tier_above_1024_runs_the_ladder():
     X, y = make_tpm_like(n_cells=1100, n_genes=60, n_types=3, seed=2)
     res = sharp_tpu_torch.sharp(X, rN_seed=1, ensize_K=2, device="cpu")
     assert res.paras["block_pad"] == 1536 and len(res.pred_clusters) == 1100
-    from sharp_tpu.analysis.ari import ari
+    from sharp_tpu_torch.analysis.ari import ari
 
     assert ari(y, res.pred_clusters) >= 0.9
 
@@ -86,11 +148,6 @@ def test_unported_linkage_backends_raise(backend):
         assert len(res.pred_clusters) == 60
 
 
-def test_sharp_unlimited_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sharp_tpu_torch.sharp_unlimited([np.ones((10, 5), np.float32)])
-
-
 def test_cuda_request_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -99,6 +156,8 @@ def test_cuda_request_without_card_raises():
         sharp_tpu_torch.sharp(X)
     with pytest.raises(RuntimeError, match="cuda"):
         sharp_tpu_torch.get_opt_hclust(np.random.default_rng(0).normal(size=(30, 5)))
+    with pytest.raises(RuntimeError, match="cuda"):
+        sharp_tpu_torch.sharp_unlimited([X[:30], X[30:]])
     with pytest.raises(ValueError, match="unsupported device"):
         sharp_tpu_torch.sharp(X, device="meta")
 

@@ -39,13 +39,13 @@ def _distances(K, n, nreal, p, seed, dev):
 @pytest.mark.parametrize("K,n,nreal", [(3, 128, 110), (15, 512, 479), (1, 1000, 990), (1, 1024, 1000)])
 def test_ward_serial_matches_plain(dev, K, n, nreal):
     from sharp_tpu_torch.ops.linkage import ward_linkage
-    from sharp_tpu_torch.ops.linkage_cuda import ward_linkage_serial
+    from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES, ward_linkage_serial
 
     D = _distances(K, n, nreal, 32, seed=n, dev=dev)
-    before = ward_linkage_serial.launches
+    before = LAUNCHES["ward_serial"]
     got = ward_linkage_serial(D)
     torch.cuda.synchronize()
-    assert ward_linkage_serial.launches == before + 1
+    assert LAUNCHES["ward_serial"] == before + 1
     ref = ward_linkage(D)
     assert torch.equal(got.merges, ref.merges)
     assert torch.equal(got.heights, ref.heights)
@@ -56,14 +56,14 @@ def test_ward_serial_matches_plain(dev, K, n, nreal):
 @pytest.mark.parametrize("ncand", [1, 13, 39])
 def test_cutree_kernel_matches_plain(dev, ncand):
     from sharp_tpu_torch.ops.linkage import cutree_multi, cutree_snapshots, ward_linkage
-    from sharp_tpu_torch.ops.linkage_cuda import cutree_multi_kernel, cutree_snapshots_kernel
+    from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES, cutree_multi_kernel, cutree_snapshots_kernel
 
     D = _distances(3, 256, 230, 16, seed=1, dev=dev)
     merges = ward_linkage(D).merges
     nr = [230, 200, 150]
-    before = cutree_snapshots_kernel.launches
+    before = LAUNCHES["cutree"]
     got = cutree_snapshots_kernel(merges, nr, minN=2, ncand=ncand)
-    assert cutree_snapshots_kernel.launches == before + 1
+    assert LAUNCHES["cutree"] == before + 1
     assert torch.equal(got, cutree_snapshots(merges, nr, minN=2, ncand=ncand))
     mask = torch.arange(256, device=dev) < 230
     a = cutree_multi_kernel(merges[0], 230, mask, 40, minN=2, ncand=ncand, nc_pad=48)
@@ -98,14 +98,14 @@ def _tail_lanes(L, Cn, dev, seed=0):
 @pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
 def test_rnn_tail_kernel_matches_plain(dev, store):
     from sharp_tpu_torch.ops.linkage import rnn_tail
-    from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
+    from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES, rnn_tail_kernel
 
     (D, *state), n_alive = _tail_lanes(12, 256, dev)
     D = D.to(store)
-    before = rnn_tail_kernel.launches
+    before = LAUNCHES["rnn_tail"]
     got = rnn_tail_kernel(D, *state)
     torch.cuda.synchronize()
-    assert rnn_tail_kernel.launches == before + 1
+    assert LAUNCHES["rnn_tail"] == before + 1
     ref = rnn_tail(D, *state)
     for lane, na in enumerate(n_alive):
         for a, b in zip(got, ref):
@@ -115,23 +115,117 @@ def test_rnn_tail_kernel_matches_plain(dev, store):
 
 @pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
 def test_ladder_with_kernel_tail_matches_plain_tail(dev, store):
-    """The ladder on the card (rounds in torch, tail in the kernel) against
-    the same rounds finished by the plain tail, and against the whole ladder
-    on the CPU."""
+    """The ladder on the card (rounds in the round kernel, tail in the tail
+    kernel) against the same rounds finished by the plain tail, against
+    plain rounds (round_impl="xla") on the card, and against the whole
+    ladder on the CPU."""
     from sharp_tpu_torch.ops.linkage import rnn_ladder, rnn_tail, ward_linkage_rnn
-    from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
+    from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES
 
     D = _distances(6, 1024, 1000, 24, seed=5, dev=dev)
-    before = rnn_tail_kernel.launches
+    before, rounds_before = LAUNCHES["rnn_tail"], LAUNCHES["rnn_round"]
     got = ward_linkage_rnn(D, store_dtype=store)
     torch.cuda.synchronize()
-    assert rnn_tail_kernel.launches == before + 1
+    assert LAUNCHES["rnn_tail"] == before + 1
+    assert LAUNCHES["rnn_round"] >= rounds_before + 2   # levels 1024 and 512
     ladder = rnn_ladder(D, store_dtype=store)
     plain = ladder.finish(*rnn_tail(*ladder.tail_inputs()))
+    xla = ward_linkage_rnn(D, store_dtype=store, round_impl="xla")
     cpu = ward_linkage_rnn(D.cpu(), store_dtype=store)
-    for ref in (plain, cpu):
+    for ref in (plain, xla, cpu):
         assert torch.equal(got.merges.cpu(), ref.merges.cpu())
         assert torch.equal(got.heights.cpu(), ref.heights.cpu())
+
+
+def _round_inputs(L, m, P, dev, store, seed=0):
+    """A round's inputs with exact ties: lane 0 merges P pairs, lane 1 is
+    frozen (no pairs), lane 2 merges P // 3; rows and columns of clusters
+    merged away earlier are BIG (all-BIG rows)."""
+    from sharp_tpu_torch.ops.distance import BIG
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    W = torch.randint(1, 40, (L, m, m), generator=g) * 0.03125
+    rows = torch.randint(1, 40, (L, P, m), generator=g) * 0.03125
+    rows[torch.rand((L, P, m), generator=g) < 0.05] = BIG
+    colslot = torch.full((L, m), -1, dtype=torch.int32)
+    dying = torch.zeros((L, m), dtype=torch.bool)
+    for lane, n_pairs in enumerate((P, 0, P // 3)[:L]):
+        W[lane, torch.arange(m), torch.arange(m)] = BIG
+        order = torch.randperm(m, generator=g)
+        dead, pick = order[:5], order[5 : 5 + 2 * n_pairs]
+        W[lane, dead, :] = BIG
+        W[lane, :, dead] = BIG
+        rows[lane, :, dead] = BIG                 # as the round masks dead columns
+        colslot[lane, torch.sort(pick[:n_pairs]).values] = torch.arange(n_pairs, dtype=torch.int32)
+        dying[lane, pick[n_pairs:]] = True
+    return W.to(dev, store), rows.to(dev, store), colslot.to(dev), dying.to(dev), dead
+
+
+@pytest.mark.parametrize("m", [2048, 1536, 1030])
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+def test_rnn_round_kernel_matches_plain(dev, store, m):
+    """Identical matrix, row minima and first-index argmins; 1030 takes the
+    scalar path (not a multiple of the vector width)."""
+    from sharp_tpu_torch.ops.linkage import rnn_round_scatter
+    from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES, rnn_round_kernel
+
+    W, rows, colslot, dying, dead = _round_inputs(3, m, 128, dev, store)
+    Wk, Wp = W.clone(), W.clone()
+    before = LAUNCHES["rnn_round"]
+    kmin, karg = rnn_round_kernel(Wk, rows, colslot, dying)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rnn_round"] == before + 1
+    pmin, parg = rnn_round_scatter(Wp, rows, colslot, dying)
+    assert torch.equal(Wk, Wp)
+    assert torch.equal(kmin, pmin) and torch.equal(karg, parg)
+    assert torch.equal(Wk[1], W[1])            # the frozen lane is untouched
+    assert (karg[2, dead] == 0).all()          # all-BIG rows: index 0
+    assert (karg[0][dying[0]] == 0).all()
+
+
+def test_unlimited_on_card_matches_cpu(dev, tmp_path):
+    """sharp_unlimited over SBLK files on the card (sparse feed and host
+    densify) and on the CPU, with the same injected RP matrix: identical
+    labels; every kernel of the path launched."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synth import make_tpm_like
+
+    from sharp_tpu_torch import sharp_unlimited
+    from sharp_tpu_torch.io.blocks import save_blocks
+    from sharp_tpu_torch.ops import linkage_cuda
+    from sharp_tpu_torch.parallel import streaming
+
+    X, y = make_tpm_like(n_cells=1500, n_genes=400, n_types=4, seed=5)
+    d = str(tmp_path / "blocks")
+    save_blocks(d, [X[:800], X[800:]], fmt="sblk")
+    rng = np.random.default_rng(2)
+    R = {}
+
+    def rp(seed, K, m, p, dtype=torch.float32, device="cpu"):
+        if (K, m, p) not in R:
+            R[(K, m, p)] = ((rng.random((m, K * p)) < 0.05) * rng.choice([-1.0, 1.0], (m, K * p))).astype(np.float32)
+        return torch.from_numpy(R[(K, m, p)]).to(device, dtype)
+
+    real = streaming.ensemble_rp_matrix
+    streaming.ensemble_rp_matrix = rp
+    kw = dict(rN_seed=3, ensize_K=4, partition_ncells=300, resume=False, linkage_backend="rnn")
+    try:
+        linkage_cuda.LAUNCHES.update(dict.fromkeys(linkage_cuda.LAUNCHES, 0))
+        card = sharp_unlimited(d, device=dev, **kw)
+        assert linkage_cuda.LAUNCHES["rnn_round"] > 0 and linkage_cuda.LAUNCHES["rnn_tail"] > 0
+        assert linkage_cuda.LAUNCHES["cutree"] > 0
+        dense = sharp_unlimited(d, device=dev, sparse_feed=False, **kw)
+        cpu = sharp_unlimited(d, device="cpu", **kw)
+        serial = sharp_unlimited(d, device=dev, **dict(kw, linkage_backend="auto"))
+        assert linkage_cuda.LAUNCHES["ward_serial"] > 0
+    finally:
+        streaming.ensemble_rp_matrix = real
+    np.testing.assert_array_equal(card.pred_clusters, cpu.pred_clusters)
+    np.testing.assert_array_equal(card.pred_clusters, dense.pred_clusters)
+    assert len(serial.pred_clusters) == 1500
 
 
 def test_wrappers_refuse_bad_input(dev):
@@ -157,6 +251,18 @@ def test_wrappers_refuse_bad_input(dev):
     with pytest.raises(ValueError):
         rnn_tail_kernel(big, *(torch.zeros((1, 1100), device=dev) for _ in range(4)))
 
+    from sharp_tpu_torch.ops.linkage_cuda import rnn_round_kernel
+
+    W, rows, colslot, dying, _ = _round_inputs(2, 64, 8, dev, torch.float32)
+    with pytest.raises(TypeError):
+        rnn_round_kernel(W.double(), rows.double(), colslot, dying)
+    with pytest.raises(ValueError):
+        rnn_round_kernel(W.transpose(1, 2), rows, colslot, dying)   # not contiguous
+    with pytest.raises(ValueError):
+        rnn_round_kernel(W, rows, colslot.long(), dying)
+    with pytest.raises(ValueError):
+        rnn_round_kernel(W, rows.to(torch.bfloat16), colslot, dying)
+
 
 def test_sharp_on_card_matches_cpu(dev):
     """The small path on the card and on the CPU, with the same injected
@@ -168,7 +274,7 @@ def test_sharp_on_card_matches_cpu(dev):
     from synth import make_tpm_like
 
     import sharp_tpu_torch
-    from sharp_tpu.config import resolve_config
+    from sharp_tpu_torch.config import resolve_config
     from sharp_tpu_torch import carry
 
     n, genes = 300, 400
@@ -198,9 +304,9 @@ def test_large_tier_on_card_matches_cpu(dev):
     from synth import make_tpm_like
 
     import sharp_tpu_torch
-    from sharp_tpu.config import resolve_config
+    from sharp_tpu_torch.config import resolve_config
     from sharp_tpu_torch import carry
-    from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
+    from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES
 
     n, genes = 700, 400
     X, y = make_tpm_like(n_cells=n, n_genes=genes, n_types=4, seed=3)
@@ -217,9 +323,9 @@ def test_large_tier_on_card_matches_cpu(dev):
         ),
         shuffle_perm=carry.shuffle_perm_from_jax(rng.permutation(n), n),
     )
-    before = rnn_tail_kernel.launches
+    before = LAUNCHES["rnn_tail"]
     a = sharp_tpu_torch.sharp(X, device=dev, **draws, **kw)
-    assert rnn_tail_kernel.launches > before
+    assert LAUNCHES["rnn_tail"] > before
     b = sharp_tpu_torch.sharp(X, device="cpu", **draws, **kw)
     np.testing.assert_array_equal(a.pred_clusters, b.pred_clusters)
     np.testing.assert_array_equal(a.per_member_k, b.per_member_k)
@@ -236,7 +342,7 @@ def test_fold_groups_do_not_change_results_on_card(dev):
     sys.path.insert(0, os.path.dirname(__file__))
     from synth import make_tpm_like
 
-    from sharp_tpu.config import resolve_config
+    from sharp_tpu_torch.config import resolve_config
     from sharp_tpu_torch.parallel.sharded import process_folds_grouped
 
     X, _ = make_tpm_like(n_cells=600, n_genes=300, n_types=4, seed=6)

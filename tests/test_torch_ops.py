@@ -27,6 +27,7 @@ from sharp_tpu_torch.ops import rp as trp
 from sharp_tpu_torch.ops import select as tsel
 from sharp_tpu_torch.ops import silhouette as tsil
 from sharp_tpu_torch.ops.linkage_cuda import (
+    LAUNCHES,
     cutree_multi_kernel,
     cutree_snapshots_kernel,
     ward_linkage_serial,
@@ -127,9 +128,9 @@ def test_ward_linkage_matches_jax_and_pallas(K, n, nreal):
             got.heights.numpy()[:, : nreal - 1], np.asarray(r.heights)[:, : nreal - 1], rtol=1e-6
         )
     # the wrapper takes the plain loop for a CPU tensor, launching nothing
-    before = ward_linkage_serial.launches
+    before = LAUNCHES["ward_serial"]
     ser = ward_linkage_serial(_t(D))
-    assert ward_linkage_serial.launches == before
+    assert LAUNCHES["ward_serial"] == before
     np.testing.assert_array_equal(ser.merges.numpy(), got.merges.numpy())
     np.testing.assert_array_equal(ser.heights.numpy(), got.heights.numpy())
 
@@ -161,9 +162,9 @@ def test_cutree_multi_matches_pallas():
     for r in (ref, ref_xla):
         for a, b in zip(got, r):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    before = cutree_snapshots_kernel.launches
+    before = LAUNCHES["cutree"]
     wrapped = cutree_multi_kernel(_t(merges), nreal, _t(mask), 40, **kw)
-    assert cutree_snapshots_kernel.launches == before
+    assert LAUNCHES["cutree"] == before
     for a, b in zip(wrapped, got):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 

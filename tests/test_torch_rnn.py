@@ -22,7 +22,7 @@ from sharp_tpu.ops import distance as jdist
 from sharp_tpu.ops import linkage as jlink
 from sharp_tpu.ops.linkage_pallas import rnn_tail_pallas
 from sharp_tpu_torch.ops import linkage as tlink
-from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
+from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES, rnn_tail_kernel
 
 STORES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -78,9 +78,9 @@ def test_rnn_tail_matches_pallas(tail_case, store):
     tst, _ = STORES[store]
     args = [torch.from_numpy(c[k]) for k in ("alive", "sizes", "gidx", "lasth")]
     D = torch.from_numpy(c["D"]).to(tst)
-    before = rnn_tail_kernel.launches
+    before = LAUNCHES["rnn_tail"]
     got = rnn_tail_kernel(D, *args)   # a CPU tensor takes the plain version
-    assert rnn_tail_kernel.launches == before
+    assert LAUNCHES["rnn_tail"] == before
     plain = tlink.rnn_tail(D, *args)
     mi, mj, hh = (np.asarray(x) for x in c["refs"][store])
     for lane, na in enumerate(c["n_alive"]):
