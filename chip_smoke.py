@@ -10,10 +10,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. data     the flagship block: 50,000 cells x 27,998 genes, 10 planted
               types (tests/synth.py, data seed 0), made once on the host.
   3. kernels  each kernel against its plain PyTorch version on the card.
-              Small-tier shapes: serial Ward at (K=15, n=512, 479 real) from
-              Pearson distances of projected data, at (1, 640) from a
-              wMetaC-like similarity and at (1, 1024, 1000 real), and the
-              cut replay on the same merges. Large-tier shapes, from the
+              Serial Ward in f32 and in bf16 storage (merges and heights
+              identical) at (K=15, n=512, 479 real) from Pearson distances
+              of projected data, at (1, 640) from a wMetaC-like similarity,
+              at (1, 1024, 1000 real), at (1, 1024) on tied sMetaC-like
+              centroids (near-duplicate replicas, half exact copies), at
+              (2, 200) and (2, 257) on both sides of its shared-memory tier,
+              and in bf16 at (1, 2048); the cut replay on the f32 merges.
+              Serial Ward is timed per shape (ms and microseconds per
+              merge). Large-tier shapes, from the
               first fold group of the flagship block (G=16 folds x K=5
               members of 2,000 cells at n_pad 2048), in f32 and in bf16
               storage: the round kernel on the inputs of the first round at
@@ -23,16 +28,18 @@ Phases, in order; any failure raises and the script exits non-zero:
               kernel rounds against the same rounds finished by the plain
               tail and against plain rounds (round_impl="xla"), merges and
               heights identical, and both timed in turns (xla, pallas,
-              pallas, xla); the cut replay at (80, 2048); serial Ward on the
-              wMetaC problem (1, 256). Median times from CUDA events
+              pallas, xla); the cut replay at (80, 2048); serial Ward (both
+              storage types) on the wMetaC problem (1, 256). Median times from CUDA events
               (kernels 20 launches, plain versions 3), and each kernel's
               bound: its bytes over 3.35 TB/s or its float32 operations over
               67 TFLOP/s, whichever is larger.
   4. slice    the small tier: sharp_tpu_torch.sharp(X, rN_seed=2103,
               exp_type="TPM", device="cuda") at (a) 479 cells x 20,000
-              genes, 7 planted types and (b) 1,000 x 20,000: ARI >= 0.9, every
-              linkage and cut replay went through the kernels, and at (a) the
-              card and the CPU agree with the same numpy-made draws.
+              genes, 7 planted types, (b) 1,000 x 20,000, and (a) with
+              linkage_backend="pallas_bf16" (serial Ward in bf16 storage):
+              ARI >= 0.9, every linkage and cut replay went through the
+              kernels, and at (a) in both backends the card and the CPU agree
+              with the same numpy-made draws.
   5. large    the large tier. (a) 6,000 x 5,000 (3 folds at n_pad 2048,
               testlog active) on the card and on the CPU with the same
               numpy-made RP matrices, testlog probe and cell reshuffle:
@@ -170,40 +177,95 @@ def _bound(nbytes, flops=0.0):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def _hold_ward_and_cutree(name, D, n_real, record_rows, ncand=39):
-    """Serial Ward and the cut replay on D against their plain versions."""
+def _hold_ward(name, D, n_real, store_name):
+    """Serial Ward on D in one storage type against its plain version:
+    merges and heights identical; its time, microseconds per merge, the
+    plain version's time and the bound. Returns the row and the merges."""
     import torch
 
     from sharp_tpu_torch.ops.linkage import ward_linkage
     from sharp_tpu_torch.ops.linkage_cuda import ward_linkage_serial
 
+    store = {"f32": torch.float32, "bf16": torch.bfloat16}[store_name]
     K, n = D.shape[0], D.shape[-1]
-    got = ward_linkage_serial(D)
-    ref = ward_linkage(D)
+    got = ward_linkage_serial(D, store_dtype=store)
+    ref = ward_linkage(D, store_dtype=store)
     torch.cuda.synchronize()
     if not torch.equal(got.merges, ref.merges):
         bad = (got.merges != ref.merges).any(-1).nonzero()
-        raise AssertionError(f"{name}: merges differ from the plain loop at {bad[:5].tolist()}")
+        raise AssertionError(f"{name} {store_name}: merges differ from the plain loop at {bad[:5].tolist()}")
     err = float((got.heights - ref.heights).abs().max())
     if not torch.equal(got.heights, ref.heights):
-        raise AssertionError(f"{name}: heights differ from the plain loop (max abs {err})")
-    nr = [n_real] * K
+        raise AssertionError(f"{name} {store_name}: heights differ from the plain loop (max abs {err})")
     # D read once, merges and heights written once; n - 1 merge steps of
     # about 10 float32 operations per column
     bound, by = _bound(_nbytes(D, got.merges, got.heights), 10.0 * K * (n - 1) * n)
-    row = dict(shape=[K, n], n_real=n_real, ward_max_abs_err=err, ward_bound_ms=bound, ward_bound_by=by)
-    row.update(_hold_cutree(name, got.merges, nr, ncand))
-    row["ward_ms"] = _median_ms(lambda: ward_linkage_serial(D), KERNEL_REPS)
-    row["ward_plain_ms"] = _median_ms(lambda: ward_linkage(D), PLAIN_REPS)
-    record_rows[name] = row
+    ms = _median_ms(lambda: ward_linkage_serial(D, store_dtype=store), KERNEL_REPS)
+    row = dict(
+        shape=[K, n], n_real=n_real, store=store_name, max_abs_err=err, ms=ms,
+        us_per_merge=1e3 * ms / (n - 1), bound_ms=bound, bound_by=by,
+        plain_ms=_median_ms(lambda: ward_linkage(D, store_dtype=store), PLAIN_REPS),
+    )
     print(
-        f"[kernels] {name} K={K} n={n} n_real={n_real}: merges, heights and cut "
-        f"snapshots identical to the plain versions; ward {row['ward_ms']:.3f} ms "
-        f"(plain {row['ward_plain_ms']:.3f} ms), cutree {row['cutree_ms']:.3f} ms "
-        f"(plain {row['cutree_plain_ms']:.3f} ms)",
+        f"[kernels] ward_serial {name} {store_name} K={K} n={n} n_real={n_real}: merges and heights "
+        f"identical to the plain loop; {ms:.3f} ms, {row['us_per_merge']:.2f} us per merge (plain "
+        f"{row['plain_ms']:.3f} ms, bound {bound * 1e3:.2f} us)",
         flush=True,
     )
+    return row, got.merges
+
+
+def _hold_ward_and_cutree(name, D, n_real, record_rows, ncand=39, stores=("f32", "bf16")):
+    """Serial Ward on D in each storage type, and the cut replay on its f32
+    merges, against their plain versions."""
+    K = D.shape[0]
+    row = {}
+    for store_name in stores:
+        row[store_name], merges = _hold_ward(name, D, n_real, store_name)
+        if store_name == "f32":
+            row.update(_hold_cutree(name, merges, [n_real] * K, ncand))
+            print(
+                f"[kernels] cutree {name}: cut snapshots identical to the plain replay; "
+                f"{row['cutree_ms']:.3f} ms (plain {row['cutree_plain_ms']:.3f} ms)",
+                flush=True,
+            )
+    record_rows[name] = row
     return row
+
+
+def _smetac_like_problem(dev, n_pad, n_real, seed, clusters=40, dim=64):
+    """A tie-heavy sMetaC-like problem (1, n_pad, n_pad): Pearson distances
+    of n_real fold centroids that are n_real / clusters near-duplicate
+    replicas of each of `clusters` cell types, half of them exact copies
+    (exact zero distances), as one type's centroid recurs in every fold."""
+    import torch
+
+    from sharp_tpu_torch.ops.select import prep_distance
+
+    rng = np.random.default_rng(seed)
+    C = rng.normal(size=(clusters, dim))
+    y = np.arange(n_real) % clusters
+    noise = 1e-3 * rng.normal(size=(n_real, dim)) * (rng.random((n_real, 1)) < 0.5)
+    X = np.zeros((n_pad, dim), np.float32)
+    X[:n_real] = C[y] + noise
+    mask = torch.arange(n_pad, device=dev) < n_real
+    D, _, _ = prep_distance(torch.from_numpy(X).to(dev), mask, symmetric=False)
+    return D[None].contiguous()
+
+
+def _random_problem(dev, K, n_pad, n_real, seed, dim=32):
+    """Pearson distances of K problems of n_real random points padded to
+    n_pad, (K, n_pad, n_pad)."""
+    import torch
+
+    from sharp_tpu_torch.ops.select import prep_distance
+    from sharp_tpu_torch.utils.prng import fixed_generator
+
+    Z = torch.zeros((K, n_pad, dim), device=dev)
+    Z[:, :n_real] = torch.randn((K, n_real, dim), generator=fixed_generator(seed, dev), device=dev)
+    mask = torch.arange(n_pad, device=dev) < n_real
+    D, _, _ = prep_distance(Z, mask, symmetric=False)
+    return D.contiguous()
 
 
 def _hold_cutree(name, merges, nr, ncand):
@@ -282,11 +344,14 @@ def phase_kernels(dev, record, Xbig, ybig):
     D, n_real = _wmetac_problem(dev, cfg, y, 512, seed=0)
     _hold_ward_and_cutree(f"ward_1x{D.shape[-1]}", D, n_real, rows)
     n_pad = pad_dim(1000)
-    Z = torch.zeros((1, n_pad, 250), device=dev)
-    Z[0, :1000] = torch.randn((1000, 250), generator=fixed_generator(1, dev), device=dev)
-    mask = torch.arange(n_pad, device=dev) < 1000
-    D, _, _ = prep_distance(Z, mask, symmetric=False)
-    _hold_ward_and_cutree(f"ward_1x{n_pad}", D.contiguous(), 1000, rows)
+    _hold_ward_and_cutree(f"ward_1x{n_pad}", _random_problem(dev, 1, n_pad, 1000, seed=1, dim=250), 1000, rows)
+    # tied sMetaC-like centroids at n_pad 1024; both sides of the
+    # shared-memory tier (n <= 256); bf16 storage at the large tier's 2048
+    _hold_ward_and_cutree("ward_smetac_1x1024", _smetac_like_problem(dev, 1024, 1000, seed=3), 1000, rows)
+    _hold_ward_and_cutree("ward_2x200", _random_problem(dev, 2, 200, 190, seed=4), 190, rows)
+    _hold_ward_and_cutree("ward_2x257", _random_problem(dev, 2, 257, 250, seed=5), 250, rows)
+    rows["ward_1x2048"] = {"bf16": _hold_ward("ward_1x2048", _random_problem(dev, 1, 2048, 2000, seed=6),
+                                              2000, "bf16")[0]}
 
     # --- large-tier shapes: the first fold group of the flagship block ------
     D, big_cfg = _fold_group_distances(Xbig, dev)
@@ -478,11 +543,14 @@ def phase_slice(dev, record):
     import sharp_tpu_torch
 
     out = {}
-    for name, n in (("wang_479x20000", 479), ("cells_1000x20000", 1000)):
+    # (a), (b) and (a) again with serial Ward in bf16 storage
+    for name, n, backend in (("wang_479x20000", 479, "auto"), ("cells_1000x20000", 1000, "auto"),
+                             ("wang_479x20000_pallas_bf16", 479, "pallas_bf16")):
+        kw = dict(SEED_KW, linkage_backend=backend)
         X, y = make_tpm_like(n_cells=n, n_genes=20000, n_types=7, seed=0)
-        if name.startswith("wang"):
-            sharp_tpu_torch.sharp(X, device=dev, **SEED_KW)  # warm-up: CUDA context, cuBLAS
-        res, wall, counts = _run_counted(X, device=dev, **SEED_KW)
+        if name == "wang_479x20000":
+            sharp_tpu_torch.sharp(X, device=dev, **kw)  # warm-up: CUDA context, cuBLAS
+        res, wall, counts = _run_counted(X, device=dev, **kw)
         score = ari(y, res.pred_clusters)
         stages = _stages(res)
         print(
@@ -498,7 +566,7 @@ def phase_slice(dev, record):
         if counts["ward_serial"] < 4 or counts["cutree"] < 4:
             raise AssertionError(f"{name}: the kernels were not launched on every linkage: {counts}")
         out[name] = dict(
-            n_cells=n, clusters=res.N_pred_cluster, ari=score, wall_s=wall,
+            n_cells=n, linkage_backend=backend, clusters=res.N_pred_cluster, ari=score, wall_s=wall,
             stages=stages, launches=counts, per_member_k=res.per_member_k.tolist(),
         )
         if name.startswith("wang"):
@@ -508,9 +576,9 @@ def phase_slice(dev, record):
             rng = np.random.default_rng(2103)
             R = carry.rp_from_jax(_ternary(rng, genes, K * p), K, p)
             probe = carry.testlog_probe_from_jax(rng.permutation(n), _ternary(rng, genes, p), n, genes, p)
-            on_card = sharp_tpu_torch.sharp(X, rM=R, testlog_probe=probe, device=dev, **SEED_KW)
+            on_card = sharp_tpu_torch.sharp(X, rM=R, testlog_probe=probe, device=dev, **kw)
             t0 = time.perf_counter()
-            on_cpu = sharp_tpu_torch.sharp(X, rM=R, testlog_probe=probe, device="cpu", **SEED_KW)
+            on_cpu = sharp_tpu_torch.sharp(X, rM=R, testlog_probe=probe, device="cpu", **kw)
             cpu_wall = time.perf_counter() - t0
             same = np.array_equal(on_card.pred_clusters, on_cpu.pred_clusters) and np.array_equal(
                 on_card.per_member_k, on_cpu.per_member_k
@@ -875,7 +943,9 @@ def main() -> int:
     ).stdout.strip()
     record["nvidia_smi"] = smi
     record["total_s"] = time.perf_counter() - t0
-    ward, cut = rows["ward_wmetac_fold"], rows["cutree_80x2048"]
+    ward, cut = rows["ward_wmetac_fold"]["f32"], rows["cutree_80x2048"]
+    # every serial Ward shape, both storage types
+    ward_err = max(r[st]["max_abs_err"] for r in rows.values() for st in ("f32", "bf16") if st in r)
     r32 = rounds["f32"][max(rounds["f32"])]
 
     def entry(name, replaces, err, ms, plain_ms, bound_ms, bound_by):
@@ -897,8 +967,8 @@ def main() -> int:
             entry("rnn_tail", "sharp_tpu/ops/linkage_pallas.py:659",
                   max(tail["f32"]["max_abs_err"], tail["bf16"]["max_abs_err"]),
                   tail["f32"]["ms"], tail["f32"]["plain_ms"], tail["f32"]["bound_ms"], tail["f32"]["bound_by"]),
-            entry("ward_serial", "sharp_tpu/ops/linkage_pallas.py:993", ward["ward_max_abs_err"],
-                  ward["ward_ms"], ward["ward_plain_ms"], ward["ward_bound_ms"], ward["ward_bound_by"]),
+            entry("ward_serial", "sharp_tpu/ops/linkage_pallas.py:993", ward_err,
+                  ward["ms"], ward["plain_ms"], ward["bound_ms"], ward["bound_by"]),
             entry("cutree", "sharp_tpu/ops/linkage_pallas.py:953", cut["cutree_max_abs_err"],
                   cut["cutree_ms"], cut["cutree_plain_ms"], cut["cutree_bound_ms"], cut["cutree_bound_by"]),
         ]

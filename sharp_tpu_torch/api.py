@@ -9,9 +9,10 @@ versions of the kernels.
 block, the large tier as folds of about partition_ncells cells, wMetaC per
 fold and sMetaC across folds. Ward linkage goes through the serial Ward
 kernel up to a padded size of 1024 and through the reciprocal-NN ladder
-with its tail kernel above. What is not ported yet raises
-`NotImplementedError` with its ROADMAP.md entry: several devices
-(`n_devices > 1`, `multihost`) and the `pallas_bf16` backend.
+with its tail kernel above ("auto"); `linkage_backend="pallas_bf16"` takes
+the serial kernel with bf16 storage at every size. What is not ported yet
+raises `NotImplementedError` with its ROADMAP.md entry: several devices
+(`n_devices > 1`, `multihost`).
 
 `sharp_unlimited` (from `parallel/streaming.py`) streams blocks (in memory
 or SBLK files) through the fold pass of the large tier, one sMetaC fuse

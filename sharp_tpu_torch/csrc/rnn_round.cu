@@ -49,26 +49,12 @@ namespace {
 
 using sharp::arg_min;
 using sharp::kBig;
+using sharp::Store;
 using sharp::warp_arg_min;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 64;  // rows of W per block
-
-template <typename T>
-struct Store;
-
-template <>
-struct Store<float> {
-  __device__ static float load(float v) { return v; }
-  __device__ static float put(float v) { return v; }
-};
-
-template <>
-struct Store<__nv_bfloat16> {
-  __device__ static float load(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static __nv_bfloat16 put(float v) { return __float2bfloat16_rn(v); }
-};
 
 // VEC consecutive elements; one 16-byte access when VEC * sizeof(T) == 16
 template <typename T, int VEC>

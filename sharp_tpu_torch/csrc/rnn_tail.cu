@@ -45,29 +45,10 @@ namespace {
 using sharp::arg_min;
 using sharp::block_arg_min;
 using sharp::kBig;
+using sharp::Store;
+using sharp::stored;
 using sharp::ward_lw;
 using sharp::warp_arg_min;
-
-template <typename T>
-struct Store;
-
-template <>
-struct Store<float> {
-  __device__ static float load(float v) { return v; }
-  __device__ static float put(float v) { return v; }
-};
-
-template <>
-struct Store<__nv_bfloat16> {
-  __device__ static float load(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static __nv_bfloat16 put(float v) { return __float2bfloat16_rn(v); }
-};
-
-// v as it reads back after a store in T
-template <typename T>
-__device__ __forceinline__ float stored(float v) {
-  return Store<T>::load(Store<T>::put(v));
-}
 
 template <typename T>
 __global__ void rnn_tail_kernel(T* __restrict__ D,                  // (L, Cn, Cn), updated in place

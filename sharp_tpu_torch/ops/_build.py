@@ -40,9 +40,8 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "ward_serial.cu": {
         "sharp_ward_serial_launch": (
-            _INT, [_VOID_P, _VOID_P, _VOID_P, _INT, _INT, _VOID_P]
+            _INT, [_VOID_P] * 4 + [_INT, _INT, _INT, _INT, _VOID_P]
         ),
-        "sharp_ward_serial_smem_bytes": (_INT, [_INT]),
     },
     "cutree.cu": {
         "sharp_cutree_launch": (

@@ -73,32 +73,29 @@ HMETHODS = (
     "median", "centroid",
 )
 
-# the serial Ward kernel keeps one problem's state in one thread block
+# "auto" and "pallas" take serial Ward up to this padded size and the f32
+# ladder above it
 SERIAL_MAX_N = 1024
 
 
 def resolve_linkage_backend(backend: str, n_pad: int, hmethod: str = "ward.D") -> str:
     """Map `SharpConfig.linkage_backend` to the port's linkage for a problem
-    of padded size n_pad: "serial" (ward.D through the serial Ward kernel
-    on a CUDA tensor, its plain loop on a CPU tensor), "rnn" / "rnn_bf16"
-    (the reciprocal-NN ladder with f32 / bf16 matrix storage) or "plain"
-    (the full-argmin loop, for the other hmethods on both devices).
+    of padded size n_pad: "serial" / "serial_bf16" (ward.D through the
+    serial Ward kernel with f32 / bf16 matrix storage on a CUDA tensor, its
+    plain loop on a CPU tensor), "rnn" / "rnn_bf16" (the reciprocal-NN
+    ladder with f32 / bf16 matrix storage) or "plain" (the full-argmin
+    loop, for the other hmethods on both devices).
 
     "auto", "xla" and "pallas" name the exact serial f32 merge order: the
     serial kernel up to n_pad 1024, above that the ladder with f32 storage
     (its merges are the serial ones on tie-free data). "rnn" and
-    "rnn_bf16" take the ladder at every size. "pallas_bf16" (serial Ward
-    with bf16 storage) is not ported yet and raises.
+    "rnn_bf16" take the ladder at every size. "pallas_bf16" takes serial
+    Ward with bf16 storage at every size, as the JAX package does (its
+    merge order, not the ladder's).
     """
     if hmethod not in HMETHODS:
         raise ValueError(f"unknown hmethod {hmethod!r}")
-    if backend == "pallas_bf16":
-        raise NotImplementedError(
-            "linkage backend 'pallas_bf16' (serial Ward with bf16 storage) is "
-            "not ported yet (ROADMAP.md, Queue 1, head); 'rnn_bf16' stores bf16 "
-            "on the ladder"
-        )
-    if backend not in ("auto", "xla", "pallas", "rnn", "rnn_bf16"):
+    if backend not in ("auto", "xla", "pallas", "pallas_bf16", "rnn", "rnn_bf16"):
         raise ValueError(f"unknown linkage backend {backend!r}")
     if hmethod != "ward.D":
         if backend not in ("auto", "xla"):
@@ -109,32 +106,48 @@ def resolve_linkage_backend(backend: str, n_pad: int, hmethod: str = "ward.D") -
         return "plain"
     if backend in ("rnn", "rnn_bf16"):
         return backend
+    if backend == "pallas_bf16":
+        return "serial_bf16"
     return "serial" if n_pad <= SERIAL_MAX_N else "rnn"
 
 
-def ward_linkage(D: torch.Tensor, method: str = "ward.D") -> LinkageResult:
+def ward_linkage(
+    D: torch.Tensor, method: str = "ward.D", store_dtype: Optional[torch.dtype] = None
+) -> LinkageResult:
     """Agglomeration over padded distance matrices D (..., n, n), any hmethod.
 
     The first n_real - 1 merges of each problem are exactly the merges of
     the unpadded problem, in R's hclust order. This full-argmin loop is the
     semantic reference and is right for every method, including the
     non-monotone centroid/median recurrences.
+
+    D is read as symmetric, from its upper triangle. `store_dtype`
+    (default D's dtype; float32 or bfloat16 for a float32 D) is the matrix
+    storage of the JAX package's `ward_linkage_pallas(store_dtype=...)`:
+    D is rounded to it on entry, every row is read as stored values, the
+    update runs in D's dtype and the new row is rounded on store, so the
+    argmin and the heights see stored values only.
     """
     n = D.shape[-1]
     batch = D.shape[:-2]
     Db = D.reshape(-1, n, n)
     B = Db.shape[0]
     dev = Db.device
+    st = store_dtype if store_dtype is not None else D.dtype
+    if st != D.dtype and (D.dtype, st) != (torch.float32, torch.bfloat16):
+        raise TypeError(f"ward_linkage stores {D.dtype} D as {D.dtype} or bfloat16, got {st}")
     eye = torch.eye(n, dtype=torch.bool, device=dev)
-    # a fresh matrix: the loop below updates it in place
-    Db = torch.where(eye, torch.tensor(BIG, dtype=Db.dtype, device=dev), Db)
+    # a fresh matrix, symmetric from the upper triangle: the loop below
+    # updates it in place
+    upper = torch.triu(Db, 1)
+    Db = _store_round(torch.where(eye, BIG, upper + upper.transpose(1, 2)), st)
     ar = torch.arange(n, device=dev)
     bidx = torch.arange(B, device=dev)
     active = torch.ones((B, n), dtype=torch.bool, device=dev)
     sizes = torch.ones((B, n), dtype=Db.dtype, device=dev)
     merges = torch.zeros((B, n - 1, 2), dtype=torch.int32, device=dev)
     heights = torch.zeros((B, n - 1), dtype=Db.dtype, device=dev)
-    big = torch.tensor(BIG, dtype=Db.dtype, device=dev)
+    big = _store_round(torch.tensor(BIG, dtype=Db.dtype, device=dev), st)
     flat = Db.view(B, n * n)
     for t in range(n - 1):
         idx = torch.argmin(flat, dim=1)          # first index of the flat min
@@ -149,7 +162,7 @@ def ward_linkage(D: torch.Tensor, method: str = "ward.D") -> LinkageResult:
         djk = Db[bidx, j]
         formula = lw_update(method, dik, djk, h[:, None], ni, nj, sizes)
         valid = active & (ar[None, :] != i[:, None]) & (ar[None, :] != j[:, None])
-        newrow = torch.where(valid, formula, big)
+        newrow = _store_round(torch.where(valid, formula, big), st)
         Db[bidx, i, :] = newrow
         Db[bidx, :, i] = newrow
         Db[bidx, j, :] = big
@@ -166,9 +179,10 @@ def ward_linkage(D: torch.Tensor, method: str = "ward.D") -> LinkageResult:
 
 
 def _store_round(x: torch.Tensor, st: torch.dtype) -> torch.Tensor:
-    """float32 x rounded to the storage dtype and read back: bf16 rounds to
-    nearest even, as the JAX package's `lax.reduce_precision(x, 8, 7)`."""
-    return x if st == torch.float32 else x.to(st).float()
+    """x rounded to the storage dtype and read back in x's dtype: bf16
+    rounds to nearest even, as the JAX package's `lax.reduce_precision(x,
+    8, 7)` and its `.astype(jnp.bfloat16)`."""
+    return x if st == x.dtype else x.to(st).to(x.dtype)
 
 
 def rnn_tail(

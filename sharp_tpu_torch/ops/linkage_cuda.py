@@ -21,7 +21,6 @@ from __future__ import annotations
 import torch
 
 from sharp_tpu_torch.ops.linkage import (
-    SERIAL_MAX_N,
     CutForest,
     LinkageResult,
     cut_forest,
@@ -36,7 +35,13 @@ from sharp_tpu_torch.ops.linkage import (
 CUTREE_MAX_N = 4096
 # the tail kernel drains one lane per thread block of at most 1024 threads
 RNN_TAIL_MAX_N = 1024
-_TAIL_STORE = {torch.float32: 0, torch.bfloat16: 1}
+# serial Ward keeps the packed triangle in shared memory up to n 256
+# (kTileMaxN in csrc/ward_serial.cu), above that the matrix in global
+# memory and seven words per row in shared memory (225 KB at 8192)
+WARD_TILE_MAX_N = 256
+WARD_SERIAL_MAX_N = 8192
+# storage type codes of the kernels that store float32 or bfloat16
+_STORE = {torch.float32: 0, torch.bfloat16: 1}
 # launches of each kernel, keyed by the kernel's name; owned by this module,
 # so a wrapper replaced by a test double does not take the count with it
 LAUNCHES = dict.fromkeys(("ward_serial", "cutree", "rnn_tail", "rnn_round"), 0)
@@ -57,34 +62,50 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def ward_linkage_serial(D: torch.Tensor) -> LinkageResult:
-    """Batched exact-f32 serial Ward.D over D (K, n, n) or (n, n).
+def ward_linkage_serial(
+    D: torch.Tensor, store_dtype: torch.dtype = torch.float32
+) -> LinkageResult:
+    """Batched serial Ward.D over float32 D (K, n, n) or (n, n), with the
+    matrix stored as `store_dtype` (float32 or bfloat16).
 
-    Same contract and bit-identical output as `ops.linkage.ward_linkage`
-    (merges (..., n-1, 2) int32 with col 0 the survivor, heights float32).
+    Same contract and bit-identical output as
+    `ops.linkage.ward_linkage(D, "ward.D", store_dtype)` (merges (..., n-1,
+    2) int32 with col 0 the survivor, heights float32; D read as symmetric
+    from its upper triangle).
     """
     if _device_kind(D) == "cpu":
-        return ward_linkage(D, method="ward.D")
+        return ward_linkage(D, method="ward.D", store_dtype=store_dtype)
     if D.dtype != torch.float32:
         raise TypeError(f"ward_linkage_serial takes float32, got {D.dtype}")
+    if store_dtype not in _STORE:
+        raise TypeError(f"ward_linkage_serial stores float32 or bfloat16, got {store_dtype}")
     if D.dim() not in (2, 3) or D.shape[-1] != D.shape[-2]:
         raise ValueError(f"ward_linkage_serial takes (K, n, n) or (n, n), got {tuple(D.shape)}")
     if not D.is_contiguous():
         raise ValueError("ward_linkage_serial takes a contiguous D")
     n = D.shape[-1]
-    if not 2 <= n <= SERIAL_MAX_N:
-        raise ValueError(f"ward_linkage_serial takes 2 <= n <= {SERIAL_MAX_N}, got {n}")
+    if not 2 <= n <= WARD_SERIAL_MAX_N:
+        raise ValueError(f"ward_linkage_serial takes 2 <= n <= {WARD_SERIAL_MAX_N}, got {n}")
     from sharp_tpu_torch.ops._build import load_kernels
 
     lib = load_kernels()["ward_serial.cu"]
     squeeze = D.dim() == 2
-    W = torch.empty((1 if squeeze else D.shape[0], n, n), dtype=torch.float32, device=D.device)
-    W.copy_(D.reshape(W.shape))   # the kernel updates its matrix in place
-    K = W.shape[0]
+    K = 1 if squeeze else D.shape[0]
+    D3 = D.reshape(K, n, n)
+    W, ldw = None, 0
+    if n > WARD_TILE_MAX_N:
+        # the working copy the kernel updates in place: symmetric from the
+        # upper triangle, rounded to the storage type, rows padded to a
+        # multiple of 8 entries for 16-byte loads
+        ldw = -(-n // 8) * 8
+        W = torch.empty((K, n, ldw), dtype=store_dtype, device=D.device)
+        upper = torch.triu(D3, 1)
+        W[:, :, :n] = upper + upper.transpose(1, 2)
     merges = torch.empty((K, n - 1, 2), dtype=torch.int32, device=D.device)
     heights = torch.empty((K, n - 1), dtype=torch.float32, device=D.device)
     rc = lib.sharp_ward_serial_launch(
-        W.data_ptr(), merges.data_ptr(), heights.data_ptr(), K, n, _stream()
+        D3.data_ptr(), None if W is None else W.data_ptr(), merges.data_ptr(),
+        heights.data_ptr(), K, n, ldw, _STORE[store_dtype], _stream(),
     )
     _check_rc(rc, "ward_serial")
     LAUNCHES["ward_serial"] += 1
@@ -107,7 +128,7 @@ def rnn_tail_kernel(
     """
     if _device_kind(D) == "cpu":
         return rnn_tail(D, alive, sizes, gidx, lasth)
-    if D.dtype not in _TAIL_STORE:
+    if D.dtype not in _STORE:
         raise TypeError(f"rnn_tail_kernel stores float32 or bfloat16, got {D.dtype}")
     if D.dim() != 3 or D.shape[1] != D.shape[2]:
         raise ValueError(f"rnn_tail_kernel takes D (L, Cn, Cn), got {tuple(D.shape)}")
@@ -132,7 +153,7 @@ def rnn_tail_kernel(
     rc = lib.sharp_rnn_tail_launch(
         W.data_ptr(), *(x.data_ptr() for x in state),
         mi.data_ptr(), mj.data_ptr(), hh.data_ptr(),
-        L, Cn, _TAIL_STORE[D.dtype], _stream(),
+        L, Cn, _STORE[D.dtype], _stream(),
     )
     _check_rc(rc, "rnn_tail")
     LAUNCHES["rnn_tail"] += 1
@@ -157,7 +178,7 @@ def rnn_round_kernel(
     """
     if _device_kind(W) == "cpu":
         return rnn_round_scatter(W, rows, colslot, dying)
-    if W.dtype not in _TAIL_STORE:
+    if W.dtype not in _STORE:
         raise TypeError(f"rnn_round_kernel stores float32 or bfloat16, got {W.dtype}")
     if W.dim() != 3 or W.shape[1] != W.shape[2] or not W.is_contiguous():
         raise ValueError(f"rnn_round_kernel takes a contiguous W (L, m, m), got {tuple(W.shape)}")
@@ -184,7 +205,7 @@ def rnn_round_kernel(
     rowarg = torch.empty((L, m), dtype=torch.int64, device=W.device)
     rc = lib.sharp_rnn_round_launch(
         W.data_ptr(), rows.data_ptr(), colslot.data_ptr(), dying.data_ptr(),
-        rowmin.data_ptr(), rowarg.data_ptr(), L, m, rows.shape[1], _TAIL_STORE[W.dtype], _stream(),
+        rowmin.data_ptr(), rowarg.data_ptr(), L, m, rows.shape[1], _STORE[W.dtype], _stream(),
     )
     _check_rc(rc, "rnn_round")
     LAUNCHES["rnn_round"] += 1

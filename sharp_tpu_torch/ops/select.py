@@ -72,10 +72,12 @@ def _general_linkage(D: torch.Tensor, hmethod: str) -> LinkageResult:
 
 
 def linkage(D: torch.Tensor, backend: str, hmethod: str) -> LinkageResult:
-    """Linkage of D (..., n, n) for a resolved backend ("serial" | "rnn" |
-    "rnn_bf16" | "plain", `ops.linkage.resolve_linkage_backend`)."""
-    if backend == "serial":
-        return ward_linkage_serial(D)
+    """Linkage of D (..., n, n) for a resolved backend ("serial" |
+    "serial_bf16" | "rnn" | "rnn_bf16" | "plain",
+    `ops.linkage.resolve_linkage_backend`)."""
+    if backend in ("serial", "serial_bf16"):
+        store = torch.bfloat16 if backend == "serial_bf16" else torch.float32
+        return ward_linkage_serial(D, store_dtype=store)
     if backend in ("rnn", "rnn_bf16"):
         store = torch.bfloat16 if backend == "rnn_bf16" else None
         return ward_linkage_rnn(D, store_dtype=store)

@@ -117,12 +117,25 @@ def test_large_tier_raises():
         sharp_tpu_torch.sharp(X, base_ncells=100, n_devices=2, device="cpu")
 
 
-def test_small_tier_above_1024_raises():
-    """Above n_pad 1024 the small tier takes the ladder; only the unported
-    serial bf16 store still raises there."""
-    X = np.ones((1100, 20), np.float32)
-    with pytest.raises(NotImplementedError, match="pallas_bf16"):
-        sharp_tpu_torch.sharp(X, linkage_backend="pallas_bf16", device="cpu")
+def test_small_tier_above_1024_raises(monkeypatch):
+    """Nothing raises above n_pad 1024 any more: "pallas_bf16" takes serial
+    Ward with bf16 storage there (the JAX package's merge order, not the
+    ladder's). The spy records the call and hands the linkage to the bf16
+    ladder, which keeps the CPU run short."""
+    from sharp_tpu_torch.ops import linkage as tlink
+    from sharp_tpu_torch.ops import select as tsel
+
+    calls = []
+
+    def spy(D, store_dtype=torch.float32):
+        calls.append((tuple(D.shape), store_dtype))
+        return tlink.ward_linkage_rnn(D, store_dtype=store_dtype)
+
+    monkeypatch.setattr(tsel, "ward_linkage_serial", spy)
+    X, _ = make_tpm_like(n_cells=1100, n_genes=60, n_types=3, seed=2)
+    res = sharp_tpu_torch.sharp(X, rN_seed=1, ensize_K=2, linkage_backend="pallas_bf16", device="cpu")
+    assert res.paras["block_pad"] == 1536 and len(res.pred_clusters) == 1100
+    assert ((2, 1536, 1536), torch.bfloat16) in calls
 
 
 def test_small_tier_above_1024_runs_the_ladder():
@@ -136,16 +149,13 @@ def test_small_tier_above_1024_runs_the_ladder():
 
 @pytest.mark.parametrize("backend", ["rnn", "rnn_bf16", "pallas_bf16"])
 def test_unported_linkage_backends_raise(backend):
-    """The ladder backends implement ward.D only; serial bf16 is not ported."""
+    """Every backend is ported: the ladder backends and serial Ward with
+    bf16 storage run, and raise only for an hmethod other than ward.D."""
     X, _ = make_tpm_like(n_cells=60, n_genes=100, n_types=2, seed=0)
-    if backend == "pallas_bf16":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sharp_tpu_torch.sharp(X, linkage_backend=backend, device="cpu")
-    else:
-        with pytest.raises(ValueError, match="ward.D only"):
-            sharp_tpu_torch.sharp(X, linkage_backend=backend, hmethod="average", device="cpu")
-        res = sharp_tpu_torch.sharp(X, linkage_backend=backend, rN_seed=1, ensize_K=2, device="cpu")
-        assert len(res.pred_clusters) == 60
+    with pytest.raises(ValueError, match="ward.D only"):
+        sharp_tpu_torch.sharp(X, linkage_backend=backend, hmethod="average", device="cpu")
+    res = sharp_tpu_torch.sharp(X, linkage_backend=backend, rN_seed=1, ensize_K=2, device="cpu")
+    assert len(res.pred_clusters) == 60
 
 
 def test_cuda_request_without_card_raises():

@@ -36,21 +36,82 @@ def _distances(K, n, nreal, p, seed, dev):
     return D.contiguous()
 
 
-@pytest.mark.parametrize("K,n,nreal", [(3, 128, 110), (15, 512, 479), (1, 1000, 990), (1, 1024, 1000)])
-def test_ward_serial_matches_plain(dev, K, n, nreal):
+def _tied(kind, n, nreal, dev, seed=0):
+    """Tie-heavy problems (1, n, n). "wmetac": 1 - the share of 5 member
+    labellings that put two points together (six distinct values), as
+    wMetaC's similarities are; "smetac": 40 centroids with 25 near-duplicate
+    replicas each, half of them exact copies (exact zero distances), as
+    sMetaC's fold centroids are."""
+    from sharp_tpu_torch.ops.select import prep_distance
+
+    rng = np.random.default_rng(seed)
+    mask = torch.arange(n) < nreal
+    if kind == "wmetac":
+        lab = rng.integers(0, 6, (nreal, 5))
+        S = np.zeros((n, n), np.float32)
+        S[:nreal, :nreal] = (lab[:, None, :] == lab[None, :, :]).mean(-1)
+        D, _, _ = prep_distance(torch.from_numpy(S).to(dev), mask.to(dev), symmetric=True)
+    else:
+        C = rng.normal(size=(40, 24))
+        y = np.arange(nreal) % 40
+        noise = 1e-3 * rng.normal(size=(nreal, 24)) * (rng.random((nreal, 1)) < 0.5)
+        X = np.zeros((n, 24), np.float32)
+        X[:nreal] = C[y] + noise
+        D, _, _ = prep_distance(torch.from_numpy(X).to(dev), mask.to(dev), symmetric=False)
+    return D[None].contiguous()
+
+
+def _hold_serial(D, store):
     from sharp_tpu_torch.ops.linkage import ward_linkage
     from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES, ward_linkage_serial
 
-    D = _distances(K, n, nreal, 32, seed=n, dev=dev)
     before = LAUNCHES["ward_serial"]
-    got = ward_linkage_serial(D)
+    got = ward_linkage_serial(D, store_dtype=store)
     torch.cuda.synchronize()
     assert LAUNCHES["ward_serial"] == before + 1
-    ref = ward_linkage(D)
+    ref = ward_linkage(D, store_dtype=store)
     assert torch.equal(got.merges, ref.merges)
     assert torch.equal(got.heights, ref.heights)
-    one = ward_linkage_serial(D[0])
+    return ref
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,n,nreal", [
+    (3, 128, 110), (15, 512, 479), (1, 1000, 990), (1, 1024, 1000),
+    (2, 200, 200), (1, 256, 240), (2, 257, 257),   # both sides of the shared-memory tier
+])
+def test_ward_serial_matches_plain(dev, store, K, n, nreal):
+    from sharp_tpu_torch.ops.linkage_cuda import ward_linkage_serial
+
+    D = _distances(K, n, nreal, 32, seed=n, dev=dev)
+    ref = _hold_serial(D, store)
+    one = ward_linkage_serial(D[0], store_dtype=store)
     assert torch.equal(one.merges, ref.merges[0])
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,n,nreal", [("wmetac", 256, 230), ("smetac", 1024, 1000)])
+def test_ward_serial_tied_matches_plain(dev, store, kind, n, nreal):
+    """Merges and heights identical on tie-heavy problems: the exact row
+    cache gives the plain loop's first-index order on every tie."""
+    _hold_serial(_tied(kind, n, nreal, dev), store)
+
+
+def test_ward_serial_bf16_at_2048(dev):
+    """bf16 storage at the large tier's padded size, where the JAX package
+    runs this kernel for "pallas_bf16"."""
+    _hold_serial(_distances(1, 2048, 2000, 32, seed=7, dev=dev), torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [5120, 8192])
+def test_ward_serial_bf16_up_to_its_largest_n(dev, n):
+    """The small tier's largest padded size under the default base_ncells
+    (5120) and the wrapper's limit (8192, the most shared memory the
+    global tier's row state may take)."""
+    from sharp_tpu_torch.ops.linkage_cuda import WARD_SERIAL_MAX_N
+
+    assert n <= WARD_SERIAL_MAX_N
+    _hold_serial(_distances(1, n, n - 40, 16, seed=n, dev=dev), torch.bfloat16)
 
 
 @pytest.mark.parametrize("ncand", [1, 13, 39])
@@ -235,8 +296,12 @@ def test_wrappers_refuse_bad_input(dev):
         ward_linkage_serial(torch.zeros((4, 4), dtype=torch.float64, device=dev))
     with pytest.raises(ValueError):
         ward_linkage_serial(torch.zeros((8, 8), device=dev).T)  # not contiguous
+    with pytest.raises(TypeError):
+        ward_linkage_serial(torch.zeros((8, 8), device=dev), store_dtype=torch.float16)
+    from sharp_tpu_torch.ops.linkage_cuda import WARD_SERIAL_MAX_N
+
     with pytest.raises(ValueError):
-        ward_linkage_serial(torch.zeros((1, 1100, 1100), device=dev))
+        ward_linkage_serial(torch.empty((1, WARD_SERIAL_MAX_N + 8, WARD_SERIAL_MAX_N + 8), device=dev))
     with pytest.raises(TypeError):
         cutree_snapshots_kernel(torch.zeros((1, 3, 2), dtype=torch.int64, device=dev), 4, minN=2, ncand=2)
 

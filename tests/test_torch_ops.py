@@ -267,8 +267,11 @@ def test_resolve_linkage_backend():
         assert tlink.resolve_linkage_backend(backend, 2048) == backend
         with pytest.raises(ValueError, match="ward.D only"):
             tlink.resolve_linkage_backend(backend, 512, "average")
-    with pytest.raises(NotImplementedError, match="pallas_bf16"):
-        tlink.resolve_linkage_backend("pallas_bf16", 512)
+    # serial Ward with bf16 storage at every size, as the JAX package runs it
+    assert tlink.resolve_linkage_backend("pallas_bf16", 512) == "serial_bf16"
+    assert tlink.resolve_linkage_backend("pallas_bf16", 2048) == "serial_bf16"
+    with pytest.raises(ValueError, match="ward.D only"):
+        tlink.resolve_linkage_backend("pallas_bf16", 512, "average")
     with pytest.raises(ValueError):
         tlink.resolve_linkage_backend("pallas", 512, "average")
     with pytest.raises(ValueError):
