@@ -32,14 +32,22 @@ Phases, in order; any failure raises and the script exits non-zero:
               storage types) on the wMetaC problem (1, 256). Median times from CUDA events
               (kernels 20 launches, plain versions 3), and each kernel's
               bound: its bytes over 3.35 TB/s or its float32 operations over
-              67 TFLOP/s, whichever is larger.
+              67 TFLOP/s, whichever is larger. The cut replay's launch floor:
+              the same kernel on a two-cell problem. The route each tail lane
+              and each cut-replay problem took (ROUTES). At the very end of
+              the run, after every wall is taken, the serial Ward, tail and
+              cut-replay kernels are timed again alone on the card with
+              torch.profiler (device_ms), without the host's share of a call.
   4. slice    the small tier: sharp_tpu_torch.sharp(X, rN_seed=2103,
               exp_type="TPM", device="cuda") at (a) 479 cells x 20,000
-              genes, 7 planted types, (b) 1,000 x 20,000, and (a) with
-              linkage_backend="pallas_bf16" (serial Ward in bf16 storage):
-              ARI >= 0.9, every linkage and cut replay went through the
-              kernels, and at (a) in both backends the card and the CPU agree
-              with the same numpy-made draws.
+              genes, 7 planted types, (b) 1,000 x 20,000, (a) with
+              linkage_backend="pallas_bf16" (serial Ward in bf16 storage),
+              and (g) 4,500 x 5,000, 10 types, padded to 4608 (the ladder,
+              and a cut replay above the old kernel's cap of 4096): ARI >=
+              0.9, every linkage and cut replay went through the kernels,
+              and at (a) in both backends and at (g) the card and the CPU
+              agree with the same numpy-made draws. The cut replay at
+              (15, 4608) on (g)'s block merges against the plain replay.
   5. large    the large tier. (a) 6,000 x 5,000 (3 folds at n_pad 2048,
               testlog active) on the card and on the CPU with the same
               numpy-made RP matrices, testlog probe and cell reshuffle:
@@ -61,15 +69,16 @@ Phases, in order; any failure raises and the script exits non-zero:
               the bench's API path calls it after an untimed warm-up on
               block 0: ARI >= 0.95, at most 57 clusters, the round kernel 3
               times and the tail kernel once per fold group, serial Ward at
-              least once per fold, a cut replay per linkage; wall and stage
-              seconds.
+              least once per fold, a cut replay per linkage, no cut-replay
+              problem on the serial route; wall and stage seconds.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it holds the card's name and power limit as nvidia-smi prints them,
 and the one before that the kernels' JSON record: per kernel its launches
 in the run of phase 6 (b) (and, under launches_by_path, in the flagship run
-of phase 5 (b)), its largest difference from the plain version, its time,
-the plain version's, its bound and what bounds it. No single PyTorch call
+of phase 5 (b)), its largest difference from the plain version, its time
+per call (and device_ms, the kernel alone), the plain version's, its bound
+and what bounds it. No single PyTorch call
 computes any of these functions, so library_ms is null. The full record
 goes to chiprun_out/chip_smoke.json. Without a CUDA device the script exits
 1 and prints no result; it imports nothing of JAX or of the JAX package and
@@ -97,6 +106,15 @@ F32_FLOPS = 67e12
 SEED_KW = dict(rN_seed=2103, exp_type="TPM")
 FLAGSHIP = dict(n_cells=50000, n_genes=27998, n_types=10, seed=0)
 FOLD, GROUP = 2000, 16
+# the small tier's shapes (name, cells, genes, planted types, linkage
+# backend): (a), (b), (a) again with serial Ward in bf16 storage, and (g)
+# padded to 4608: the ladder, and a cut replay above the old kernel's cap
+SLICE_SHAPES = (
+    ("wang_479x20000", 479, 20000, 7, "auto"),
+    ("cells_1000x20000", 1000, 20000, 7, "auto"),
+    ("wang_479x20000_pallas_bf16", 479, 20000, 7, "pallas_bf16"),
+    ("cells_4500x5000", 4500, 5000, 10, "auto"),
+)
 
 
 def _median_ms(fn, reps):
@@ -114,6 +132,39 @@ def _median_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _device_ms(fn, kernel, reps=KERNEL_REPS):
+    """The kernel's own time on the card (CUPTI, through torch.profiler): the
+    mean duration of the device kernels whose name holds `kernel` over
+    `reps` calls of fn, without the host's share of a call. None where the
+    profiler saw no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+            count += ev.count
+    return total / count / 1e3 if count and total > 0 else None
+
+
+# the kernels' own times, taken after every wall of the run (see main)
+_DEFERRED = []
+
+
+def _device_ms_later(row, key, fn, kernel, label):
+    """Queue `_device_ms(fn, kernel)` into row[key]: the profiler runs at the
+    end, after every wall of the run is taken."""
+    row[key] = None
+    _DEFERRED.append((row, key, fn, kernel, label))
 
 
 def _ternary(rng, m, p):
@@ -206,6 +257,8 @@ def _hold_ward(name, D, n_real, store_name):
         us_per_merge=1e3 * ms / (n - 1), bound_ms=bound, bound_by=by,
         plain_ms=_median_ms(lambda: ward_linkage(D, store_dtype=store), PLAIN_REPS),
     )
+    _device_ms_later(row, "device_ms", lambda: ward_linkage_serial(D, store_dtype=store),
+                     "ward_serial_kernel", f"ward_serial {name} {store_name}")
     print(
         f"[kernels] ward_serial {name} {store_name} K={K} n={n} n_real={n_real}: merges and heights "
         f"identical to the plain loop; {ms:.3f} ms, {row['us_per_merge']:.2f} us per merge (plain "
@@ -223,7 +276,7 @@ def _hold_ward_and_cutree(name, D, n_real, record_rows, ncand=39, stores=("f32",
     for store_name in stores:
         row[store_name], merges = _hold_ward(name, D, n_real, store_name)
         if store_name == "f32":
-            row.update(_hold_cutree(name, merges, [n_real] * K, ncand))
+            _hold_cutree(name, merges, [n_real] * K, ncand, row=row)
             print(
                 f"[kernels] cutree {name}: cut snapshots identical to the plain replay; "
                 f"{row['cutree_ms']:.3f} ms (plain {row['cutree_plain_ms']:.3f} ms)",
@@ -268,28 +321,43 @@ def _random_problem(dev, K, n_pad, n_real, seed, dim=32):
     return D.contiguous()
 
 
-def _hold_cutree(name, merges, nr, ncand):
+def _hold_cutree(name, merges, nr, ncand, minN=2, row=None):
+    """The cut replay against the plain replay; its numbers go into `row`
+    (a new dict by default), which is returned."""
     import torch
 
+    from sharp_tpu_torch.ops import linkage_cuda
     from sharp_tpu_torch.ops.linkage import cutree_snapshots
     from sharp_tpu_torch.ops.linkage_cuda import cutree_snapshots_kernel
 
-    snaps = cutree_snapshots_kernel(merges, nr, minN=2, ncand=ncand)
-    snaps_ref = cutree_snapshots(merges, nr, minN=2, ncand=ncand)
+    snaps = cutree_snapshots_kernel(merges, nr, minN=minN, ncand=ncand)
+    serial = int(linkage_cuda.ROUTES["cutree"].sum())
+    snaps_ref = cutree_snapshots(merges, nr, minN=minN, ncand=ncand)
     torch.cuda.synchronize()
     if not torch.equal(snaps, snaps_ref):
         raise AssertionError(f"{name}: cut snapshots differ from the plain replay")
-    bound, by = _bound(_nbytes(merges, snaps) + 4 * len(nr))
-    return dict(
+    if serial:
+        raise AssertionError(f"{name}: {serial} of {len(nr)} linkage problems took the serial route")
+    # the merges up to each problem's last snapshot step read once, n_real
+    # read once, the snapshots written once
+    n = merges.shape[1] + 1
+    steps = sum(max(min(r - 1 - minN, n - 2) + 1, 0) for r in nr)
+    bound, by = _bound(8 * steps + 4 * len(nr) + _nbytes(snaps))
+    row = {} if row is None else row
+    row.update(
         cutree_bound_ms=bound, cutree_bound_by=by,
         cutree_max_abs_err=float((snaps - snaps_ref).abs().max()),
         cutree_ms=_median_ms(
-            lambda: cutree_snapshots_kernel(merges, nr, minN=2, ncand=ncand), KERNEL_REPS
+            lambda: cutree_snapshots_kernel(merges, nr, minN=minN, ncand=ncand), KERNEL_REPS
         ),
         cutree_plain_ms=_median_ms(
-            lambda: cutree_snapshots(merges, nr, minN=2, ncand=ncand), PLAIN_REPS
+            lambda: cutree_snapshots(merges, nr, minN=minN, ncand=ncand), PLAIN_REPS
         ),
     )
+    _device_ms_later(row, "cutree_device_ms",
+                     lambda: cutree_snapshots_kernel(merges, nr, minN=minN, ncand=ncand),
+                     "cutree_kernel", f"cutree {name}")
+    return row
 
 
 def _fold_group_distances(X, dev):
@@ -322,8 +390,9 @@ def phase_kernels(dev, record, Xbig, ybig):
     import torch
 
     from sharp_tpu_torch.config import pad_dim, resolve_config
+    from sharp_tpu_torch.ops import linkage_cuda
     from sharp_tpu_torch.ops.linkage import rnn_tail, validate_merge_sequence, ward_linkage_rnn
-    from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
+    from sharp_tpu_torch.ops.linkage_cuda import cutree_snapshots_kernel, rnn_tail_kernel
     from sharp_tpu_torch.ops.rp import rp_project_ensemble, ternary_rp_matrix
     from sharp_tpu_torch.ops.select import prep_distance
     from sharp_tpu_torch.utils.prng import fixed_generator
@@ -372,6 +441,7 @@ def phase_kernels(dev, record, Xbig, ybig):
         args = ladder.tail_inputs()
         Cn = args[0].shape[-1]
         got = rnn_tail_kernel(*args)
+        rows_route = int(linkage_cuda.ROUTES["rnn_tail"].sum())
         ref = rnn_tail(*args)
         torch.cuda.synchronize()
         n_alive = args[1].sum(dim=1).long()
@@ -398,18 +468,22 @@ def phase_kernels(dev, record, Xbig, ybig):
         bound, by = _bound(_nbytes(*args, *got))
         tail[store_name] = dict(
             shape=[L, Cn], n_alive_min=int(n_alive.min()), n_alive_max=int(n_alive.max()),
+            lanes_by_route={"triangle": L - rows_route, "rows": rows_route},
             max_abs_err=err, bound_ms=bound, bound_by=by,
             ms=_median_ms(lambda: rnn_tail_kernel(*args), KERNEL_REPS),
             plain_ms=_median_ms(lambda: rnn_tail(*args), PLAIN_REPS),
         )
         print(
             f"[kernels] rnn_tail {store_name} L={L} Cn={Cn} (n_alive {tail[store_name]['n_alive_min']}-"
-            f"{tail[store_name]['n_alive_max']}): mi, mj, hh identical to the plain tail; the whole "
+            f"{tail[store_name]['n_alive_max']}; lanes by route {tail[store_name]['lanes_by_route']}): "
+            f"mi, mj, hh identical to the plain tail; the whole "
             f"ladder identical with the plain tail and with plain rounds; kernel "
             f"{tail[store_name]['ms']:.3f} ms (plain {tail[store_name]['plain_ms']:.3f} ms, bound "
             f"{bound * 1e3:.2f} us); rounds per level {per_level}",
             flush=True,
         )
+        _device_ms_later(tail[store_name], "device_ms", lambda a=args: rnn_tail_kernel(*a),
+                         "rnn_tail_kernel", f"rnn_tail {store_name} ({L}, {Cn})")
         del args, got, ref
         # the whole ladder with plain rounds and with kernel rounds, in turns
         turns = {}
@@ -430,7 +504,7 @@ def phase_kernels(dev, record, Xbig, ybig):
     record["rnn_tail"] = tail
     record["rnn_round"] = {st: {str(m): row for m, row in r.items()} for st, r in rounds.items()}
     record["rnn_round_rounds_per_level"] = {st: {str(m): c for m, c in r.items()} for st, r in rounds_per_level.items()}
-    big = dict(_hold_cutree("cutree_80x2048", links["f32"].merges, [FOLD] * L, 39))
+    big = _hold_cutree("cutree_80x2048", links["f32"].merges, [FOLD] * L, 39)
     big["shape"] = [L, D.shape[-1]]
     rows["cutree_80x2048"] = big
     print(
@@ -439,6 +513,19 @@ def phase_kernels(dev, record, Xbig, ybig):
         f"{big['cutree_bound_ms'] * 1e3:.2f} us)",
         flush=True,
     )
+    # the launch floor: the same kernel on a two-cell problem, which has no
+    # snapshot step, with n_real from the host (as the pipeline passes it)
+    # and already on the card, and the kernel's own time
+    pair = torch.zeros((1, 1, 2), dtype=torch.int32, device=dev)
+    pair[0, 0, 1] = 1
+    two = torch.full((1,), 2, dtype=torch.int32, device=dev)
+    floor = record["cutree_launch_floor"] = dict(
+        host_n_real_ms=_median_ms(lambda: cutree_snapshots_kernel(pair, [2], minN=2, ncand=39), KERNEL_REPS),
+        device_n_real_ms=_median_ms(lambda: cutree_snapshots_kernel(pair, two, minN=2, ncand=39), KERNEL_REPS),
+    )
+    print(f"[kernels] cutree launch floor (1, 2): {floor}", flush=True)
+    _device_ms_later(floor, "device_ms", lambda: cutree_snapshots_kernel(pair, two, minN=2, ncand=39),
+                     "cutree_kernel", "cutree launch floor (1, 2)")
     del D, links
     D, n_real = _wmetac_problem(dev, big_cfg, ybig[:FOLD], pad_dim(FOLD), seed=2)
     _hold_ward_and_cutree("ward_wmetac_fold", D, n_real, rows)
@@ -513,20 +600,53 @@ def _hold_round(name, inputs):
     return row
 
 
+class _RouteLog(dict):
+    """`ops.linkage_cuda.ROUTES` that also keeps the route tensor of every
+    launch, not only the last one's, without a sync."""
+
+    NAMES = {"cutree": ("parallel", "serial"), "rnn_tail": ("triangle", "rows")}
+
+    def __init__(self):
+        super().__init__(dict.fromkeys(self.NAMES))
+        self.log = {key: [] for key in self.NAMES}
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        self.log[key].append(value)
+
+    def counts(self):
+        """Problems (cutree) and lanes (rnn_tail) by route, over every launch."""
+        import torch
+
+        out = {}
+        for key, (zero, one) in self.NAMES.items():
+            r = torch.cat(self.log[key]) if self.log[key] else torch.zeros(0, dtype=torch.int32)
+            ones = int(r.sum())
+            out[key] = {zero: r.numel() - ones, one: ones}
+        return out
+
+
 def _run_counted(X, entry="sharp", **kw):
     """One call of the port's `sharp` (or `sharp_unlimited`) with every
-    kernel's launch count set to 0 just before it and read just after."""
+    kernel's launch count set to 0 just before it and read just after, and
+    the routes its cut-replay problems and tail lanes took."""
     import torch
 
     import sharp_tpu_torch
-    from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES
+    from sharp_tpu_torch.ops import linkage_cuda
 
-    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
-    t0 = time.perf_counter()
-    res = getattr(sharp_tpu_torch, entry)(X, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return res, wall, dict(LAUNCHES)
+    log, saved = _RouteLog(), linkage_cuda.ROUTES
+    linkage_cuda.ROUTES = log
+    try:
+        linkage_cuda.LAUNCHES.update(dict.fromkeys(linkage_cuda.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        res = getattr(sharp_tpu_torch, entry)(X, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(linkage_cuda.LAUNCHES)
+    finally:
+        linkage_cuda.ROUTES = saved
+    return res, wall, counts, log.counts()
 
 
 def _stages(res):
@@ -535,6 +655,8 @@ def _stages(res):
 
 def phase_slice(dev, record):
     from sharp_tpu_torch.analysis.ari import ari
+    from sharp_tpu_torch.ops import linkage_cuda
+    from sharp_tpu_torch.ops.linkage import counts_per_problem
     from sharp_tpu_torch.config import resolve_config
     from sharp_tpu_torch import carry
     from sharp_tpu_torch.core.pipeline import preprocess
@@ -543,40 +665,56 @@ def phase_slice(dev, record):
     import sharp_tpu_torch
 
     out = {}
-    # (a), (b) and (a) again with serial Ward in bf16 storage
-    for name, n, backend in (("wang_479x20000", 479, "auto"), ("cells_1000x20000", 1000, "auto"),
-                             ("wang_479x20000_pallas_bf16", 479, "pallas_bf16")):
+    for name, n, n_genes, n_types, backend in SLICE_SHAPES:
         kw = dict(SEED_KW, linkage_backend=backend)
-        X, y = make_tpm_like(n_cells=n, n_genes=20000, n_types=7, seed=0)
+        X, y = make_tpm_like(n_cells=n, n_genes=n_genes, n_types=n_types, seed=0)
         if name == "wang_479x20000":
             sharp_tpu_torch.sharp(X, device=dev, **kw)  # warm-up: CUDA context, cuBLAS
-        res, wall, counts = _run_counted(X, device=dev, **kw)
+        res, wall, counts, routes = _run_counted(X, device=dev, **kw)
         score = ari(y, res.pred_clusters)
         stages = _stages(res)
         print(
             f"[slice] {name}: {res.N_pred_cluster} clusters, ARI {score:.4f}, "
             f"per-member k {res.per_member_k.tolist()}, wall {wall:.3f} s, "
-            f"launches {counts}",
+            f"launches {counts}, routes {routes}",
             flush=True,
         )
         print(f"[slice] {name} stages (s): {json.dumps(stages)}", flush=True)
         if score < 0.9:
             raise AssertionError(f"{name}: ARI {score:.4f} < 0.9")
-        # one block linkage, one wMetaC meta linkage, two testlog probes
-        if counts["ward_serial"] < 4 or counts["cutree"] < 4:
+        # one block linkage, one wMetaC meta linkage, two testlog probes: by
+        # serial Ward up to n_pad 1024, by the ladder above
+        ladder = n > 1024
+        if (counts["rnn_tail"] if ladder else counts["ward_serial"]) < (1 if ladder else 4) or (
+            counts["ward_serial"] < 1 or counts["cutree"] < (2 if ladder else 4)
+        ):
             raise AssertionError(f"{name}: the kernels were not launched on every linkage: {counts}")
         out[name] = dict(
-            n_cells=n, linkage_backend=backend, clusters=res.N_pred_cluster, ari=score, wall_s=wall,
-            stages=stages, launches=counts, per_member_k=res.per_member_k.tolist(),
+            n_cells=n, n_genes=n_genes, linkage_backend=backend, clusters=res.N_pred_cluster, ari=score,
+            wall_s=wall, stages=stages, launches=counts, routes=routes,
+            per_member_k=res.per_member_k.tolist(),
         )
-        if name.startswith("wang"):
+        if name.startswith("wang") or ladder:
             cfg = resolve_config(n, X.shape[1], **SEED_KW)
             genes = preprocess(X, cfg).shape[1]
             K, p = cfg.ensize_K, cfg.reduced_ndim
             rng = np.random.default_rng(2103)
             R = carry.rp_from_jax(_ternary(rng, genes, K * p), K, p)
             probe = carry.testlog_probe_from_jax(rng.permutation(n), _ternary(rng, genes, p), n, genes, p)
-            on_card = sharp_tpu_torch.sharp(X, rM=R, testlog_probe=probe, device=dev, **kw)
+            blocks = {}
+            real_cut = linkage_cuda.cutree_snapshots_kernel
+
+            def spy(merges, n_real, **k):
+                # the block linkage's merges: the one cut replay of K problems
+                if merges.shape[0] == K and "merges" not in blocks:
+                    blocks.update(merges=merges.clone(), n_real=n_real, **k)
+                return real_cut(merges, n_real, **k)
+
+            linkage_cuda.cutree_snapshots_kernel = spy
+            try:
+                on_card = sharp_tpu_torch.sharp(X, rM=R, testlog_probe=probe, device=dev, **kw)
+            finally:
+                linkage_cuda.cutree_snapshots_kernel = real_cut
             t0 = time.perf_counter()
             on_cpu = sharp_tpu_torch.sharp(X, rM=R, testlog_probe=probe, device="cpu", **kw)
             cpu_wall = time.perf_counter() - t0
@@ -593,6 +731,19 @@ def phase_slice(dev, record):
             if not same:
                 raise AssertionError(f"{name}: the card and the CPU disagree with the same draws")
             out[name]["cpu_wall_s"] = cpu_wall
+            if ladder:
+                merges = blocks["merges"]
+                G, n_pad = merges.shape[0], merges.shape[1] + 1
+                nr = counts_per_problem(blocks["n_real"], G, "cpu").tolist()
+                row = _hold_cutree(f"cutree_{G}x{n_pad}", merges, nr, blocks["ncand"], blocks["minN"])
+                row["shape"] = [G, n_pad]
+                record.setdefault("kernels", {})[f"cutree_{G}x{n_pad}"] = row
+                print(
+                    f"[kernels] cutree_{G}x{n_pad} on {name}'s block merges: identical to the plain "
+                    f"replay; {row['cutree_ms']:.3f} ms (plain {row['cutree_plain_ms']:.3f} ms, bound "
+                    f"{row['cutree_bound_ms'] * 1e3:.2f} us)",
+                    flush=True,
+                )
     record["slice"] = out
 
 
@@ -651,7 +802,7 @@ def phase_large(dev, record, Xbig, ybig):
         testlog_probe=carry.testlog_probe_from_jax(rng.permutation(n), _ternary(rng, genes, p), n, genes, p),
         shuffle_perm=carry.shuffle_perm_from_jax(rng.permutation(n), n),
     )
-    on_card, wall, counts = _run_counted(X, device=dev, **draws, **SEED_KW)
+    on_card, wall, counts, _ = _run_counted(X, device=dev, **draws, **SEED_KW)
     t0 = time.perf_counter()
     on_cpu = sharp_tpu_torch.sharp(X, device="cpu", **draws, **SEED_KW)
     cpu_wall = time.perf_counter() - t0
@@ -680,15 +831,16 @@ def phase_large(dev, record, Xbig, ybig):
     T = len(fold_sizes(len(ybig), FOLD))
     runs = {}
     for backend in ("auto", "rnn_bf16"):
-        res, wall, counts = _run_counted(Xbig, device=dev, linkage_backend=backend, **SEED_KW)
+        res, wall, counts, routes = _run_counted(Xbig, device=dev, linkage_backend=backend, **SEED_KW)
         score = ari(ybig, res.pred_clusters)
         stages = _stages(res)
         runs[backend] = dict(
             wall_s=wall, ari=score, clusters=res.N_pred_cluster, stages=stages, launches=counts,
+            routes=routes,
         )
         print(
             f"[large] flagship_50000x27998 linkage_backend={backend}: {res.N_pred_cluster} clusters, "
-            f"ARI {score:.4f}, {T} folds, wall {wall:.3f} s, launches {counts}",
+            f"ARI {score:.4f}, {T} folds, wall {wall:.3f} s, launches {counts}, routes {routes}",
             flush=True,
         )
         print(f"[large] flagship_50000x27998 {backend} stages (s): {json.dumps(stages)}", flush=True)
@@ -706,11 +858,13 @@ def phase_large(dev, record, Xbig, ybig):
             # wMetaC per fold + sMetaC: serial Ward; every opt_hclust: the cut replay
             if counts["ward_serial"] < T + 1 or counts["cutree"] < T + 1 + counts["rnn_tail"]:
                 raise AssertionError(f"flagship: wMetaC/sMetaC did not go through the kernels: {counts}")
+            if routes["cutree"]["serial"]:
+                raise AssertionError(f"flagship: cut-replay problems took the serial route: {routes}")
 
     # (c) one more f32 run with the fold program's parts timed
     acc, saved = _timed_parts(torch)
     try:
-        res, wall, _ = _run_counted(Xbig, device=dev, **SEED_KW)
+        res, wall, _, _ = _run_counted(Xbig, device=dev, **SEED_KW)
     finally:
         for mod, name, real in saved:
             setattr(mod, name, real)
@@ -809,7 +963,7 @@ def phase_unlimited(dev, record, tmp):
     R = _ternary(np.random.default_rng(7500), genes, cfg.ensize_K * cfg.reduced_ndim)
     real = _patched_rp(streaming, R)
     try:
-        card, wall, counts = _run_counted(small, entry="sharp_unlimited", device=dev, **kw)
+        card, wall, counts, _ = _run_counted(small, entry="sharp_unlimited", device=dev, **kw)
         dense = sharp_tpu_torch.sharp_unlimited(small, device=dev, sparse_feed=False, **kw)
         t0 = time.perf_counter()
         cpu = sharp_tpu_torch.sharp_unlimited(small, device="cpu", **kw)
@@ -862,7 +1016,7 @@ def phase_unlimited(dev, record, tmp):
     sharp_tpu_torch.sharp_unlimited(warm, n_cells=n_cells, manifest_dir=None, **api_kw)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    res, wall, counts = _run_counted(data, entry="sharp_unlimited", **api_kw)
+    res, wall, counts, routes = _run_counted(data, entry="sharp_unlimited", **api_kw)
     score = ari(y, res.pred_clusters)
     stages = _stages(res)
     T = math.ceil(API_BLOCK / 2000)          # folds per block
@@ -870,7 +1024,7 @@ def phase_unlimited(dev, record, tmp):
     print(
         f"[unlimited] flagship 4 blocks ({n_cells} cells): {res.N_pred_cluster} clusters, ARI "
         f"{score:.4f}; wall {wall:.3f} s (warm-up on block 0 {warm_s:.3f} s), {n_cells / wall:.1f} "
-        f"cells/s; launches {counts}",
+        f"cells/s; launches {counts}; routes {routes}",
         flush=True,
     )
     print(f"[unlimited] flagship stages (s): {json.dumps(stages)}", flush=True)
@@ -887,9 +1041,11 @@ def phase_unlimited(dev, record, tmp):
                              f"folds' wMetaC: {counts}")
     if counts["cutree"] < counts["ward_serial"] + counts["rnn_tail"]:
         raise AssertionError(f"unlimited (b): a linkage went without its cut replay: {counts}")
+    if routes["cutree"]["serial"]:
+        raise AssertionError(f"unlimited (b): cut-replay problems took the serial route: {routes}")
     out["flagship_4x50000x27998"] = dict(
         n_cells=n_cells, wall_s=wall, warm_s=warm_s, cells_per_s=n_cells / wall, ari=score,
-        clusters=res.N_pred_cluster, stages=stages, launches=counts, fold_groups=groups,
+        clusters=res.N_pred_cluster, stages=stages, launches=counts, routes=routes, fold_groups=groups,
         sblk_bytes=sblk_bytes, datagen_s=gen_s,
     )
     record["unlimited"] = out
@@ -916,7 +1072,8 @@ def main() -> int:
     print(f"[build] {report.seconds:.2f} s, built {report.built or 'nothing (cached)'}", flush=True)
     for src, log in report.log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            # each kernel instance's name, then its registers and spills
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {src}: {line.strip()}", flush=True)
 
     t = time.perf_counter()
@@ -933,6 +1090,11 @@ def main() -> int:
         unl_counts = phase_unlimited(dev, record, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    for row, key, fn, kernel, label in _DEFERRED:
+        # a second try where the profiler returned no kernel events
+        row[key] = _device_ms(fn, kernel) or _device_ms(fn, kernel)
+        print(f"[device] {label}: {row[key]} ms on the card alone", flush=True)
+    _DEFERRED.clear()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sharp_tpu"))
     if loaded:
         raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded[:10]}")
@@ -948,14 +1110,16 @@ def main() -> int:
     ward_err = max(r[st]["max_abs_err"] for r in rows.values() for st in ("f32", "bf16") if st in r)
     r32 = rounds["f32"][max(rounds["f32"])]
 
-    def entry(name, replaces, err, ms, plain_ms, bound_ms, bound_by):
+    def entry(name, replaces, err, ms, plain_ms, bound_ms, bound_by, device_ms=None):
         # launches: the main path of this slice, sharp_unlimited over the 4
-        # flagship blocks; launches_by_path adds the large tier's flagship run
+        # flagship blocks; launches_by_path adds the large tier's flagship run.
+        # ms: one call through the wrapper (CUDA events); device_ms: the
+        # kernel alone (torch.profiler), null where not measured
         return {
             "name": name, "route": "cuda", "source": f"sharp_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": unl_counts[name], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": None, "device_ms": device_ms,
             "launches_by_path": {"large": large_counts[name], "unlimited": unl_counts[name]},
         }
 
@@ -966,11 +1130,13 @@ def main() -> int:
                   r32["ms"], r32["plain_ms"], r32["bound_ms"], r32["bound_by"]),
             entry("rnn_tail", "sharp_tpu/ops/linkage_pallas.py:659",
                   max(tail["f32"]["max_abs_err"], tail["bf16"]["max_abs_err"]),
-                  tail["f32"]["ms"], tail["f32"]["plain_ms"], tail["f32"]["bound_ms"], tail["f32"]["bound_by"]),
+                  tail["f32"]["ms"], tail["f32"]["plain_ms"], tail["f32"]["bound_ms"], tail["f32"]["bound_by"],
+                  tail["f32"]["device_ms"]),
             entry("ward_serial", "sharp_tpu/ops/linkage_pallas.py:993", ward_err,
-                  ward["ms"], ward["plain_ms"], ward["bound_ms"], ward["bound_by"]),
+                  ward["ms"], ward["plain_ms"], ward["bound_ms"], ward["bound_by"], ward["device_ms"]),
             entry("cutree", "sharp_tpu/ops/linkage_pallas.py:953", cut["cutree_max_abs_err"],
-                  cut["cutree_ms"], cut["cutree_plain_ms"], cut["cutree_bound_ms"], cut["cutree_bound_by"]),
+                  cut["cutree_ms"], cut["cutree_plain_ms"], cut["cutree_bound_ms"], cut["cutree_bound_by"],
+                  cut["cutree_device_ms"]),
         ]
     }
     record["kernels_line"] = kernels

@@ -1,6 +1,6 @@
-// Pieces shared by the Ward kernels (ward_serial.cu, rnn_tail.cu,
-// rnn_round.cu): the first-index argmin reductions, the storage types and
-// the Lance-Williams ward.D update.
+// Pieces shared by the Ward kernels (ward_tile.cuh, which serial Ward and
+// the ladder's tail share, and rnn_round.cu): the first-index argmin
+// reductions, the storage types and the Lance-Williams ward.D update.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,33 +92,6 @@ __device__ __forceinline__ void warp_top2_redux(float& v0, int& i0, float& v1, i
   i0 = a;
   v1 = m2;
   i1 = a2;
-}
-
-// Block-wide (value, index) argmin, smallest index on ties. Every thread
-// passes its partial and receives the block's result. red_v / red_i hold
-// 33 slots; blockDim.x is a multiple of 32.
-__device__ __forceinline__ void block_arg_min(float& v, int& i, float* red_v, int* red_i) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  warp_arg_min(v, i);
-  if (lane == 0) {
-    red_v[warp] = v;
-    red_i[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < nwarps ? red_v[lane] : INFINITY;
-    i = lane < nwarps ? red_i[lane] : INT_MAX;
-    warp_arg_min(v, i);
-    if (lane == 0) {
-      red_v[32] = v;
-      red_i[32] = i;
-    }
-  }
-  __syncthreads();
-  v = red_v[32];
-  i = red_i[32];
 }
 
 // ((ni + nk) * dik + (nj + nk) * djk - nk * h) / ((ni + nj) + nk), every

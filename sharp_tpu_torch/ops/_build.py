@@ -45,12 +45,12 @@ _SIGNATURES = {
     },
     "cutree.cu": {
         "sharp_cutree_launch": (
-            _INT, [_VOID_P, _VOID_P, _VOID_P, _INT, _INT, _INT, _INT, _VOID_P]
+            _INT, [_VOID_P] * 5 + [_INT] * 4 + [_VOID_P]
         ),
     },
     "rnn_tail.cu": {
         "sharp_rnn_tail_launch": (
-            _INT, [_VOID_P] * 8 + [_INT, _INT, _INT, _VOID_P]
+            _INT, [_VOID_P] * 10 + [_INT, _INT, _INT, _INT, _VOID_P]
         ),
     },
     "rnn_round.cu": {

@@ -31,12 +31,15 @@ from sharp_tpu_torch.ops.linkage import (
     counts_per_problem,
 )
 
-# the cut replay stages merges + labels (3n int32) in 48 KB of shared memory
-CUTREE_MAX_N = 4096
-# the tail kernel drains one lane per thread block of at most 1024 threads
+# the cut replay keeps its state (2n int32) in shared memory up to the 227 KB
+# a block may opt in to, above that in a global scratch
+CUTREE_SMEM_MAX_N = 232448 // 8
+# the tail kernel drains one lane per thread block of at most 1024 threads;
+# up to Cn 256 (WARD_TILE_MAX_N) a symmetric lane's matrix sits in shared
+# memory as its packed upper triangle
 RNN_TAIL_MAX_N = 1024
 # serial Ward keeps the packed triangle in shared memory up to n 256
-# (kTileMaxN in csrc/ward_serial.cu), above that the matrix in global
+# (kTileMaxN in csrc/ward_tile.cuh), above that the matrix in global
 # memory and seven words per row in shared memory (225 KB at 8192)
 WARD_TILE_MAX_N = 256
 WARD_SERIAL_MAX_N = 8192
@@ -45,6 +48,11 @@ _STORE = {torch.float32: 0, torch.bfloat16: 1}
 # launches of each kernel, keyed by the kernel's name; owned by this module,
 # so a wrapper replaced by a test double does not take the count with it
 LAUNCHES = dict.fromkeys(("ward_serial", "cutree", "rnn_tail", "rnn_round"), 0)
+# the route each problem or lane of the last launch took, an int32 tensor on
+# the card, kept without a sync: the cut replay's per problem (0 parallel,
+# 1 serial) and the tail's per lane (0 the triangle in shared memory, 1 the
+# rows in global memory)
+ROUTES = dict.fromkeys(("cutree", "rnn_tail"))
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -124,7 +132,12 @@ def rnn_tail_kernel(
 
     Same contract as `ops.linkage.rnn_tail`; for t < n_alive - 1 the output
     is identical to it. The kernel stops each lane after its n_alive - 1
-    merges and leaves zeros in the entries after them.
+    merges and leaves zeros in the entries after them. D is only read.
+
+    Up to Cn 256 a lane whose D is exactly symmetric is drained from its
+    upper triangle in shared memory; any other lane from its rows in a
+    working copy in global memory. `ROUTES["rnn_tail"]` holds the route of
+    each lane of the last launch (0 triangle, 1 rows).
     """
     if _device_kind(D) == "cpu":
         return rnn_tail(D, alive, sizes, gidx, lasth)
@@ -145,18 +158,25 @@ def rnn_tail_kernel(
     from sharp_tpu_torch.ops._build import load_kernels
 
     lib = load_kernels()["rnn_tail.cu"]
-    W = D.contiguous().clone()   # the kernel updates its matrix in place
+    D = D.contiguous()
+    # the working copy of the lanes that take the rows route, filled and
+    # updated in place by the kernel; rows padded to a multiple of 8 entries
+    # for 16-byte loads
+    ldw = -(-Cn // 8) * 8
+    W = torch.empty((L, Cn, ldw), dtype=D.dtype, device=D.device)
     state = [x.contiguous() for x in (alive, sizes, gidx, lasth)]
     mi = torch.empty((L, Cn), dtype=torch.int32, device=D.device)
     mj = torch.empty((L, Cn), dtype=torch.int32, device=D.device)
     hh = torch.empty((L, Cn), dtype=torch.float32, device=D.device)
+    routes = torch.empty(L, dtype=torch.int32, device=D.device)
     rc = lib.sharp_rnn_tail_launch(
-        W.data_ptr(), *(x.data_ptr() for x in state),
-        mi.data_ptr(), mj.data_ptr(), hh.data_ptr(),
-        L, Cn, _STORE[D.dtype], _stream(),
+        D.data_ptr(), W.data_ptr(), *(x.data_ptr() for x in state),
+        mi.data_ptr(), mj.data_ptr(), hh.data_ptr(), routes.data_ptr(),
+        L, Cn, ldw, _STORE[D.dtype], _stream(),
     )
     _check_rc(rc, "rnn_tail")
     LAUNCHES["rnn_tail"] += 1
+    ROUTES["rnn_tail"] = routes
     return mi, mj, hh
 
 
@@ -216,7 +236,14 @@ def cutree_snapshots_kernel(
     merges: torch.Tensor, n_real, *, minN: int, ncand: int
 ) -> torch.Tensor:
     """Replay merges (G, n-1, 2) and snapshot labels at every candidate cut
-    -> (G, ncand, n) int32. Same contract as `ops.linkage.cutree_snapshots`."""
+    -> (G, ncand, n) int32. Same contract as `ops.linkage.cutree_snapshots`,
+    and identical output, at any n >= 2.
+
+    The kernel takes each problem by its parallel route (deaths, pointer
+    jumping and a replay of the last ncand steps) where the merges up to
+    the last snapshot are viable, as every linkage of the package emits
+    them, and by the serial replay otherwise; `ROUTES["cutree"]` holds the
+    route of each problem of the last launch (0 parallel, 1 serial)."""
     if _device_kind(merges) == "cpu":
         return cutree_snapshots(merges, n_real, minN=minN, ncand=ncand)
     if merges.dtype != torch.int32:
@@ -227,20 +254,29 @@ def cutree_snapshots_kernel(
         raise ValueError("cutree takes contiguous merges")
     G, m, _ = merges.shape
     n = m + 1
-    if not 2 <= n <= CUTREE_MAX_N:
-        raise ValueError(f"cutree takes 2 <= n <= {CUTREE_MAX_N}, got {n}")
+    if n < 2:
+        raise ValueError(f"cutree takes n >= 2, got {n}")
     if ncand < 1:
         raise ValueError(f"cutree takes ncand >= 1, got {ncand}")
+    if merges.data_ptr() % 8:
+        merges = merges.clone()   # the kernel reads each (i, j) as one 8-byte word
     nr = counts_per_problem(n_real, G, merges.device)
     from sharp_tpu_torch.ops._build import load_kernels
 
     lib = load_kernels()["cutree.cu"]
     snaps = torch.empty((G, ncand, n), dtype=torch.int32, device=merges.device)
+    routes = torch.empty(G, dtype=torch.int32, device=merges.device)
+    scratch = None
+    if n > CUTREE_SMEM_MAX_N:
+        scratch = torch.empty((G, 2, n), dtype=torch.int32, device=merges.device)
     rc = lib.sharp_cutree_launch(
-        merges.data_ptr(), nr.data_ptr(), snaps.data_ptr(), G, n, minN, ncand, _stream()
+        merges.data_ptr(), nr.data_ptr(), snaps.data_ptr(),
+        routes.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        G, n, minN, ncand, _stream(),
     )
     _check_rc(rc, "cutree")
     LAUNCHES["cutree"] += 1
+    ROUTES["cutree"] = routes
     return snaps
 
 
@@ -259,8 +295,10 @@ def cutree_multi_kernel(
     Same contract as `ops.linkage.cutree_multi`."""
     squeeze = merges.dim() == 2
     mg = merges[None] if squeeze else merges
-    snaps = cutree_snapshots_kernel(mg.contiguous(), n_real, minN=minN, ncand=ncand)
+    # the counts go to the card once, for the replay and the validity mask
+    nr = counts_per_problem(n_real, mg.shape[0], mg.device)
+    snaps = cutree_snapshots_kernel(mg.contiguous(), nr, minN=minN, ncand=ncand)
     out = cut_forest(
-        snaps, n_real, real_mask, maxN, minN=minN, ncand=ncand, nc_pad=nc_pad
+        snaps, nr, real_mask, maxN, minN=minN, ncand=ncand, nc_pad=nc_pad
     )
     return CutForest(*(x[0] for x in out)) if squeeze else out

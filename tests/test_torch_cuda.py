@@ -133,6 +133,61 @@ def test_cutree_kernel_matches_plain(dev, ncand):
         assert torch.equal(x, y)
 
 
+def _hold_cutree(merges, nr, routes, ncand=39):
+    """The cut replay on the card against the plain replay: identical
+    snapshots, one launch, the route of each problem as expected."""
+    from sharp_tpu_torch.ops.linkage import cutree_snapshots
+    from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES, ROUTES, cutree_snapshots_kernel
+
+    before = LAUNCHES["cutree"]
+    got = cutree_snapshots_kernel(merges, nr, minN=2, ncand=ncand)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cutree"] == before + 1
+    assert ROUTES["cutree"].tolist() == routes
+    assert torch.equal(got, cutree_snapshots(merges, nr, minN=2, ncand=ncand))
+    return got
+
+
+@pytest.mark.parametrize("n", [4608, 5120, 8192, 20480, 32768])
+def test_cutree_kernel_without_size_cap(dev, n):
+    """Sizes the old kernel refused (above 4096): the small tier's padded
+    4608 and 5120, 8192, 20480, and 32768, where the replay's state leaves
+    shared memory for the global scratch. Random viable sequences, one
+    with its real points merged first as a padded problem's are."""
+    from cutree_model import random_viable_merges
+
+    rng = np.random.default_rng(n)
+    nr = [n - 108, n // 2 + 1, 40]
+    merges = np.stack([random_viable_merges(rng, n, first=nr[0]), random_viable_merges(rng, n),
+                       random_viable_merges(rng, n)])
+    _hold_cutree(torch.from_numpy(merges).to(dev), nr, [0, 0, 0])
+
+
+def test_cutree_kernel_serial_route_and_edges(dev):
+    """Non-viable sequences (a j merged away twice, a merge into a dead i)
+    take the serial route with identical output; a violation after the
+    last snapshot step does not; n_real <= minN leaves every row 0."""
+    from cutree_model import chain_merges, random_viable_merges
+
+    rng = np.random.default_rng(3)
+    n = 4608
+    reused = random_viable_merges(rng, n)
+    reused[3000, 1] = reused[1000, 1]
+    dead_i = random_viable_merges(rng, n)
+    dead_i[4000, 0] = dead_i[20, 1]
+    late = random_viable_merges(rng, n)
+    late[-1, 1] = late[0, 1]
+    merges = torch.from_numpy(np.stack([reused, dead_i, late, chain_merges(n), late])).to(dev)
+    nr = torch.tensor([n, n, 4000, n, 2], dtype=torch.int32, device=dev)   # counts on the card
+    got = _hold_cutree(merges, nr, [1, 1, 0, 0, 0])
+    assert not got[4].any()
+    # one host count for all problems: dead_i's fault now lies after the
+    # last snapshot step
+    _hold_cutree(merges[:3].contiguous(), [4000] * 3, [1, 0, 0])
+    odd = torch.from_numpy(random_viable_merges(rng, 1027)[None]).to(dev)   # no 16-byte rows
+    _hold_cutree(odd, [1000], [0])
+
+
 def _tail_lanes(L, Cn, dev, seed=0):
     """Compacted-tail-like lanes: the first n_alive slots live, dead slots
     and the diagonal BIG, sizes > 1, running heights, increasing global
@@ -172,6 +227,45 @@ def test_rnn_tail_kernel_matches_plain(dev, store):
         for a, b in zip(got, ref):
             assert torch.equal(a[lane, : na - 1], b[lane, : na - 1])
         assert not got[0][lane, na - 1 :].any()
+
+
+def _hold_tail(D, state, n_alive, routes):
+    from sharp_tpu_torch.ops.linkage import rnn_tail
+    from sharp_tpu_torch.ops.linkage_cuda import ROUTES, rnn_tail_kernel
+
+    got = rnn_tail_kernel(D, *state)
+    torch.cuda.synchronize()
+    assert ROUTES["rnn_tail"].tolist() == routes
+    ref = rnn_tail(D, *state)
+    for lane, na in enumerate(n_alive):
+        steps = max(na - 1, 0)
+        for a, b in zip(got, ref):
+            assert torch.equal(a[lane, :steps], b[lane, :steps])
+            assert not a[lane, steps:].any()
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+def test_rnn_tail_kernel_routes(dev, store):
+    """Cn 256: lanes of n_alive 2 and 1 and the tied lanes drain from the
+    triangle in shared memory; a lane made asymmetric by one ulp takes the
+    row route in the same launch. Cn 512: every lane takes the row route."""
+    from sharp_tpu_torch.ops.distance import BIG
+
+    (D, *state), n_alive = _tail_lanes(6, 256, dev, seed=4)
+    upper = torch.triu(D, 1)
+    D = upper + upper.transpose(1, 2)            # exactly symmetric
+    for lane, na in ((1, 2), (2, 1)):
+        n_alive[lane] = na
+        state[0][lane, na:] = 0.0
+        D[lane, na:, :] = BIG
+        D[lane, :, na:] = BIG
+    D[:, torch.arange(256), torch.arange(256)] = BIG
+    D = D.to(store)
+    bits = D.view(torch.int32 if store == torch.float32 else torch.int16)
+    bits[3, 5, 9] += 1                         # D[3, 5, 9] one ulp above D[3, 9, 5]
+    _hold_tail(D, state, n_alive, [0, 0, 0, 1, 0, 0])
+    (D, *state), n_alive = _tail_lanes(3, 512, dev, seed=5)
+    _hold_tail(D.to(store), state, n_alive, [1, 1, 1])
 
 
 @pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
