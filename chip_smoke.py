@@ -35,9 +35,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               67 TFLOP/s, whichever is larger. The cut replay's launch floor:
               the same kernel on a two-cell problem. The route each tail lane
               and each cut-replay problem took (ROUTES). At the very end of
-              the run, after every wall is taken, the serial Ward, tail and
-              cut-replay kernels are timed again alone on the card with
-              torch.profiler (device_ms), without the host's share of a call.
+              the run, after every wall is taken, the four kernels are timed
+              again alone on the card with torch.profiler (device_ms),
+              without the host's share of a call.
   4. slice    the small tier: sharp_tpu_torch.sharp(X, rN_seed=2103,
               exp_type="TPM", device="cuda") at (a) 479 cells x 20,000
               genes, 7 planted types, (b) 1,000 x 20,000, (a) with
@@ -71,12 +71,34 @@ Phases, in order; any failure raises and the script exits non-zero:
               times and the tail kernel once per fold group, serial Ward at
               least once per fold, a cut replay per linkage, no cut-replay
               problem on the serial route; wall and stage seconds.
+  7. analysis  run after phase 5, before phase 6, on the flagship block and
+              the labels, x0 and viE of phase 5 (b)'s sharp() run. (a)
+              gethclust on a Pearson d of log2 expression and its features
+              at 479 and 1,000 cells x 20,000 genes (n_pad 512, 1024): serial
+              Ward and the cut replay launched; f, height and the chosen cut
+              identical to the CPU, msil within 1e-6 and CH within 1e-4
+              relative. (b) Marker genes: on a 4,096 x 2,048 cut dp, best and
+              auc identical to the CPU, z and fc within 1e-5 relative; on the
+              whole block the call twice identical, four row blocks = the
+              full matrix, every cluster keeps a marker, and
+              get_marker_genes_unlimited2 over four gene slices with ng=1
+              selects get_marker_genes' genes at its thresholds; the call's
+              wall, and the host's column slicing, the copies to the card and
+              the card's statistics timed apart. (c) The embedding: a 10,000-
+              cell subsample, PCA to 50, 500 t-SNE iterations: finite,
+              between-cluster distance > 3 x within-cluster spread; the card
+              and the CPU within 1e-2 of the layout after 10 iterations from
+              one start layout at n 500; the call's wall, the host's input,
+              the joint P and the loop timed apart. (d) python -m
+              sharp_tpu_torch cluster, markers and embed in subprocesses
+              with the default device on 479 x 20,000: ARI >= 0.9, the JAX
+              CLI's npz keys.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it holds the card's name and power limit as nvidia-smi prints them,
 and the one before that the kernels' JSON record: per kernel its launches
 in the run of phase 6 (b) (and, under launches_by_path, in the flagship run
-of phase 5 (b)), its largest difference from the plain version, its time
+of phase 5 (b) and in phase 7 (a)'s gethclust calls), its largest difference from the plain version, its time
 per call (and device_ms, the kernel alone), the plain version's, its bound
 and what bounds it. No single PyTorch call
 computes any of these functions, so library_ms is null. The full record
@@ -589,13 +611,14 @@ def _hold_round(name, inputs):
         ms=_median_ms(lambda: rnn_round_kernel(Wk, rows, colslot, dying), KERNEL_REPS),
         plain_ms=_median_ms(lambda: rnn_round_scatter(Wk, rows, colslot, dying), PLAIN_REPS),
     )
+    _device_ms_later(row, "device_ms", lambda: rnn_round_kernel(Wk, rows, colslot, dying),
+                     "rnn_round_kernel", name)
     print(
         f"[kernels] {name} L={L} P={rows.shape[1]} ({row['pairs']} pairs): matrix, row minima and "
         f"argmins identical to the plain version; kernel {row['ms']:.3f} ms (plain "
         f"{row['plain_ms']:.3f} ms, bound {bound:.3f} ms by {by}, {100 * bound / row['ms']:.1f}% of it)",
         flush=True,
     )
-    del Wk
     torch.cuda.empty_cache()
     return row
 
@@ -845,7 +868,7 @@ def phase_large(dev, record, Xbig, ybig):
         )
         print(f"[large] flagship_50000x27998 {backend} stages (s): {json.dumps(stages)}", flush=True)
         if backend == "auto":
-            main_counts = counts
+            main_counts, main_res = counts, res
             if score < 0.9:
                 raise AssertionError(f"flagship: ARI {score:.4f} < 0.9")
             if counts["rnn_tail"] < math.ceil(T / GROUP):
@@ -878,7 +901,251 @@ def phase_large(dev, record, Xbig, ybig):
     runs["parts"] = dict(fold_ensemble_s=fe, wall_s=wall, parts=parts)
     out["flagship_50000x27998"] = runs
     record["large"] = out
-    return main_counts
+    return main_counts, main_res
+
+
+# --- the analysis layer --------------------------------------------------------
+MARKER_CUT = (4096, 2048)   # cells, genes of the card-against-CPU marker check
+# the card against the CPU after 10 t-SNE iterations from one start layout,
+# within tests/test_torch_analysis.py's TSNE_TOL of the largest coordinate
+TSNE_CHECK_N, TSNE_CHECK_ITERS, TSNE_TOL = 500, 10, 1e-2
+
+
+def _synced(torch, fn):
+    """fn() and its wall seconds, the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _analysis_gethclust(dev, out):
+    """(a) gethclust on a Pearson d of log2 expression and its features, at
+    n 479 (n_pad 512) and 1,000 (1024), on the card and on the CPU. Returns
+    the launches of the two card calls."""
+    import torch
+
+    import sharp_tpu_torch
+    from sharp_tpu_torch.analysis.ari import ari
+    from sharp_tpu_torch.config import pad_dim
+    from sharp_tpu_torch.ops import linkage_cuda
+    from synth import make_tpm_like
+
+    problems = []
+    for n in (479, 1000):
+        X, y = make_tpm_like(n_cells=n, n_genes=20000, n_types=7, seed=0)
+        Z = np.log2(1.0 + X).astype(np.float32)
+        problems.append((n, y, (1.0 - np.corrcoef(Z)).astype(np.float32), Z))
+    linkage_cuda.LAUNCHES.update(dict.fromkeys(linkage_cuda.LAUNCHES, 0))
+    cards = [sharp_tpu_torch.gethclust(d, Z, device=dev) for _, _, d, Z in problems]
+    torch.cuda.synchronize()
+    counts = dict(linkage_cuda.LAUNCHES)
+    if counts["ward_serial"] < 2 or counts["cutree"] < 2:
+        raise AssertionError(f"gethclust: serial Ward or the cut replay was not launched: {counts}")
+    for (n, y, d, Z), card in zip(problems, cards):
+        t = time.perf_counter()
+        cpu = sharp_tpu_torch.gethclust(d, Z, device="cpu")
+        cpu_s = time.perf_counter() - t
+        walls = [_synced(torch, lambda: sharp_tpu_torch.gethclust(d, Z, device=dev))[1] for _ in range(3)]
+        same = {k: bool(np.array_equal(card[k], cpu[k])) for k in ("f", "msil", "CHind", "height")}
+        same["oind"] = card["oind"] == cpu["oind"]
+        msil_err = float(np.abs(card["msil"] - cpu["msil"]).max())
+        ch_rel = float((np.abs(card["CHind"] - cpu["CHind"]) / np.maximum(np.abs(cpu["CHind"]), 1e-30)).max())
+        row = dict(
+            n=n, n_pad=pad_dim(n), identical=same,
+            msil_max_abs_diff=msil_err, ch_max_rel_diff=ch_rel, ari=ari(y, card["f"]),
+            clusters=int(card["f"].max()), card_s=float(np.median(walls)), cpu_s=cpu_s,
+        )
+        print(f"[analysis] gethclust n={n}: {row}", flush=True)
+        if not (same["f"] and same["height"] and same["oind"]):
+            raise AssertionError(f"gethclust n={n}: labels, heights or the chosen cut differ card/CPU: {same}")
+        if msil_err > 1e-6 or ch_rel > 1e-4:
+            raise AssertionError(f"gethclust n={n}: msil {msil_err} (<= 1e-6) or CH {ch_rel} (<= 1e-4 rel)")
+        out[f"gethclust_{n}"] = row
+    out["gethclust_launches"] = counts
+    return counts
+
+
+def _analysis_markers(dev, out, Xbig, labels):
+    """(b) marker genes on the flagship block with sharp()'s labels."""
+    import torch
+
+    from sharp_tpu_torch.analysis import markers as mk
+
+    # the card against the CPU on a cut
+    nc, gc = MARKER_CUT
+    Xc = np.ascontiguousarray(Xbig[:nc, :gc])
+    stats = {}
+    for where in (dev, "cpu"):
+        _, _, C, oh, counts = mk._label_encoding(labels[:nc], where)
+        stats[str(where)] = [x.cpu() for x in mk._gene_chunk_stats(
+            torch.from_numpy(Xc).to(where), oh, counts, C=C)]
+    card, cpu = stats[str(dev)], stats["cpu"]
+    names = ("dp", "best", "auc", "z", "fc")
+    same = {k: bool(torch.equal(a, b)) for k, a, b in zip(names, card, cpu)}
+    rel = {k: float(((a.double() - b.double()).abs() / b.double().abs().clamp_min(1e-30)).max())
+           for k, a, b in zip(names[3:], card[3:], cpu[3:])}
+    print(f"[analysis] markers cut {nc} x {gc}, card vs CPU: identical {same}, max rel diff {rel}", flush=True)
+    if not (same["dp"] and same["best"] and same["auc"]) or max(rel.values()) > 1e-5:
+        raise AssertionError(f"markers cut: card and CPU disagree: {same}, {rel}")
+    out["markers_cut"] = dict(shape=[nc, gc], identical=same, max_rel_diff=rel)
+
+    # the whole block: the call, twice; four row blocks; unlimited2 over
+    # four gene slices against get_marker_genes at its thresholds
+    n, G = Xbig.shape
+    full, wall = _synced(torch, lambda: mk.get_marker_genes(Xbig, labels, device=dev))
+    again, wall2 = _synced(torch, lambda: mk.get_marker_genes(Xbig, labels, device=dev))
+    rows = np.array_split(np.arange(n), 4)
+    blocked, wall_b = _synced(torch, lambda: mk.get_marker_genes([Xbig[r[0]:r[-1] + 1] for r in rows], labels,
+                                                                  device=dev))
+    cols = np.array_split(np.arange(G), 4)
+    slices = [Xbig[:, c[0]:c[-1] + 1] for c in cols]
+    unl, wall_u = _synced(torch, lambda: mk.get_marker_genes_unlimited2(slices, labels, ng=1, device=dev))
+    at_thr = mk.get_marker_genes(Xbig, labels, theta=1e-5, auc_thre=0.85, p_thre=0.05, device=dev)
+
+    def same_result(a, b):
+        return all(np.array_equal(a.gallinfo[k], b.gallinfo[k]) for k in a.gallinfo) and all(
+            np.array_equal(a.mginfo[k], b.mginfo[k]) for k in a.mginfo) and np.array_equal(a.mat, b.mat)
+
+    checks = dict(
+        repeat_identical=same_result(full, again),
+        blocked_identical=all(np.array_equal(full.mginfo[k], blocked.mginfo[k]) for k in full.mginfo)
+        and np.array_equal(full.mat, blocked.mat),
+        every_cluster_keeps_a_marker=set(np.unique(full.mginfo["cluster"])) == set(np.unique(labels)),
+        unlimited2_ng1_same_genes=bool(np.array_equal(unl.mginfo["gene_index"], at_thr.mginfo["gene_index"])),
+    )
+    # the parts of one call: the host's column slices, their copies to the
+    # card, and the card's statistics on chunks already there
+    starts = range(0, G, 2048)
+    t = time.perf_counter()
+    host = [np.ascontiguousarray(Xbig[:, s:s + 2048], np.float32) for s in starts]
+    slice_s = time.perf_counter() - t
+    on_card, upload_s = _synced(torch, lambda: [torch.from_numpy(h).to(dev) for h in host])
+    del host
+    _, _, C, oh, counts = mk._label_encoding(labels, dev)
+    _, stats_s = _synced(torch, lambda: [mk._gene_chunk_stats(x, oh, counts, C=C) for x in on_card])
+    del on_card
+    torch.cuda.empty_cache()
+    row = dict(
+        shape=[n, G], chunks=len(starts), markers=full.n_markers, adauc=full.adauc, **checks,
+        wall_s=wall, wall_repeat_s=wall2, wall_blocked_s=wall_b, wall_unlimited2_s=wall_u,
+        host_slice_s=slice_s, upload_s=upload_s, card_stats_s=stats_s,
+        unlimited2_markers=unl.n_markers,
+    )
+    print(f"[analysis] markers {n} x {G}: {row}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"markers on the flagship block: {checks}")
+    out["markers_flagship"] = row
+
+
+def _analysis_embedding(dev, out, res):
+    """(c) the embedding of the flagship result: a 10,000-cell subsample,
+    PCA to 50, 500 t-SNE iterations on the card."""
+    import torch
+
+    from sharp_tpu_torch.analysis import embed
+
+    (emb, idx), wall = _synced(torch, lambda: embed.visualization_embedding(res, device=dev))
+    lab = res.pred_clusters[idx]
+    cl = np.unique(lab)
+    cent = np.stack([emb[lab == c].mean(0) for c in cl])
+    within = float(np.mean([np.mean(np.linalg.norm(emb[lab == c] - cent[i], axis=1)) for i, c in enumerate(cl)]))
+    between = float(np.mean([np.linalg.norm(cent[a] - cent[b]) for a in range(len(cl)) for b in range(a + 1, len(cl))]))
+    # the parts: host input (z-score, subsample, PCA), the joint P, the loop
+    t = time.perf_counter()
+    X, idx2 = embed.embedding_input(res)
+    host_s = time.perf_counter() - t
+    Xt = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(dev)
+    _, p_s = _synced(torch, lambda: embed._joint_p(Xt, 30.0))
+    Y0 = embed.initial_layout(len(idx2), 10).to(dev)
+    _, tsne_s = _synced(torch, lambda: embed._tsne_exact(Xt, Y0))
+    del Xt
+    torch.cuda.empty_cache()
+    # the card against the CPU from one start layout
+    Xs, _ = embed.embedding_input(res, max_cells=TSNE_CHECK_N)
+    Xs = torch.from_numpy(np.ascontiguousarray(Xs, np.float32))
+    Ys = embed.initial_layout(Xs.shape[0], 3)
+    a = embed._tsne_exact(Xs.to(dev), Ys.to(dev), n_iter=TSNE_CHECK_ITERS).cpu()
+    b = embed._tsne_exact(Xs, Ys, n_iter=TSNE_CHECK_ITERS)
+    diff = float((a - b).abs().max() / b.abs().max())
+    row = dict(
+        cells=len(idx), finite=bool(np.all(np.isfinite(emb))), between=between, within=within,
+        wall_s=wall, host_input_s=host_s, joint_p_s=p_s, tsne_s=tsne_s,
+        ms_per_iteration=1e3 * (tsne_s - p_s) / 500, card_vs_cpu_n=int(Xs.shape[0]),
+        card_vs_cpu_rel_max_diff=diff, same_subsample=bool(np.array_equal(idx, idx2)),
+    )
+    print(f"[analysis] embedding: {row}", flush=True)
+    if not (row["finite"] and emb.shape == (len(idx), 2) and len(idx) <= 10000 and row["same_subsample"]):
+        raise AssertionError(f"embedding: {row}")
+    if between <= 3 * within:
+        raise AssertionError(f"embedding: between-cluster {between} <= 3 x within-cluster {within}")
+    if diff > TSNE_TOL:
+        raise AssertionError(f"embedding: card and CPU differ by {diff} of the layout after "
+                             f"{TSNE_CHECK_ITERS} iterations (<= {TSNE_TOL})")
+    out["embedding"] = row
+
+
+def _analysis_cli(out, tmp):
+    """(d) python -m sharp_tpu_torch cluster, markers, embed in subprocesses
+    with the default device, on 479 x 20,000."""
+    from sharp_tpu_torch.analysis.ari import ari
+    from synth import make_tpm_like
+
+    X, y = make_tpm_like(n_cells=479, n_genes=20000, n_types=7, seed=0)
+    xpath = os.path.join(tmp, "X.npz")
+    np.savez(xpath, X=X, gene_names=np.array([f"G{i}" for i in range(X.shape[1])]))
+    paths = {k: os.path.join(tmp, f"{k}.npz") for k in ("res", "markers", "emb")}
+    env = dict(os.environ, PYTHONPATH=HERE)
+    walls = {}
+    for cmd, args in (
+        ("cluster", [xpath, "--out", paths["res"], "--rN-seed", "2103", "--exp-type", "TPM"]),
+        ("markers", [xpath, paths["res"], "--out", paths["markers"]]),
+        ("embed", [paths["res"], "--out", paths["emb"]]),
+    ):
+        t = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "sharp_tpu_torch", cmd, *args], cwd=tmp, env=env,
+                             capture_output=True, text=True, timeout=300)
+        walls[cmd] = time.perf_counter() - t
+        if run.returncode != 0:
+            raise AssertionError(f"cli {cmd} exited {run.returncode}: {run.stderr[-2000:]}")
+        print(f"[analysis] cli {cmd}: {run.stdout.strip().splitlines()[-1]} ({walls[cmd]:.1f} s)", flush=True)
+    want = {
+        "res": {"pred_clusters", "x0", "viE", "paras", "timing"},
+        "markers": {"mg_gene", "mg_gene_index", "mg_cluster", "mg_sparsity", "mg_auc", "mg_pvalue",
+                    "mg_p_adj", "mg_fold_change"},
+        "emb": {"embedding", "cell_indices"},
+    }
+    for k, keys in want.items():
+        with np.load(paths[k], allow_pickle=True) as z:
+            if set(z.files) != keys:
+                raise AssertionError(f"cli {k}: keys {sorted(z.files)}, the JAX CLI writes {sorted(keys)}")
+            if k == "res":
+                score = ari(y, z["pred_clusters"])
+            if k == "emb" and not np.all(np.isfinite(z["embedding"])):
+                raise AssertionError("cli embed: the embedding is not finite")
+    if score < 0.9:
+        raise AssertionError(f"cli cluster: ARI {score:.4f} < 0.9")
+    out["cli"] = dict(ari=score, walls_s=walls)
+
+
+def phase_analysis(dev, record, Xbig, flagship):
+    """Phase 7: gethclust, the marker genes, the embedding and the CLI on
+    the card. Returns the kernels' launches of the gethclust calls."""
+    out = {}
+    t0 = time.perf_counter()
+    counts = _analysis_gethclust(dev, out)
+    _analysis_markers(dev, out, Xbig, flagship.pred_clusters)
+    _analysis_embedding(dev, out, flagship)
+    tmp = tempfile.mkdtemp(prefix="sharp_smoke_cli_")
+    try:
+        _analysis_cli(out, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[analysis] phase {out['phase_s']:.1f} s", flush=True)
+    record["analysis"] = out
+    return counts
 
 
 # --- the streaming path ------------------------------------------------------
@@ -1065,7 +1332,13 @@ def main() -> int:
     from synth import make_tpm_like
 
     dev = torch.device("cuda", 0)
-    record = {"device": torch.cuda.get_device_name(0)}
+    # read at the start, so that a run that stops at a gate still names its card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(f"[device] {smi}", flush=True)
+    record = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     t0 = time.perf_counter()
     report = _build.build_report()
     record["build_s"] = report.seconds
@@ -1083,8 +1356,9 @@ def main() -> int:
 
     rows, tail, rounds = phase_kernels(dev, record, Xbig, ybig)
     phase_slice(dev, record)
-    large_counts = phase_large(dev, record, Xbig, ybig)
-    del Xbig, ybig
+    large_counts, flagship = phase_large(dev, record, Xbig, ybig)
+    analysis_counts = phase_analysis(dev, record, Xbig, flagship)
+    del Xbig, ybig, flagship
     tmp = tempfile.mkdtemp(prefix="sharp_smoke_")
     try:
         unl_counts = phase_unlimited(dev, record, tmp)
@@ -1099,11 +1373,6 @@ def main() -> int:
     if loaded:
         raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded[:10]}")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    record["nvidia_smi"] = smi
     record["total_s"] = time.perf_counter() - t0
     ward, cut = rows["ward_wmetac_fold"]["f32"], rows["cutree_80x2048"]
     # every serial Ward shape, both storage types
@@ -1120,14 +1389,15 @@ def main() -> int:
             "replaces": replaces, "launches": unl_counts[name], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "device_ms": device_ms,
-            "launches_by_path": {"large": large_counts[name], "unlimited": unl_counts[name]},
+            "launches_by_path": {"large": large_counts[name], "unlimited": unl_counts[name],
+                                 "analysis": analysis_counts[name]},
         }
 
     kernels = {
         "kernels": [
             entry("rnn_round", "sharp_tpu/ops/linkage_pallas.py:854",
                   max(r["max_abs_err"] for st in rounds.values() for r in st.values()),
-                  r32["ms"], r32["plain_ms"], r32["bound_ms"], r32["bound_by"]),
+                  r32["ms"], r32["plain_ms"], r32["bound_ms"], r32["bound_by"], r32["device_ms"]),
             entry("rnn_tail", "sharp_tpu/ops/linkage_pallas.py:659",
                   max(tail["f32"]["max_abs_err"], tail["bf16"]["max_abs_err"]),
                   tail["f32"]["ms"], tail["f32"]["plain_ms"], tail["f32"]["bound_ms"], tail["f32"]["bound_by"],

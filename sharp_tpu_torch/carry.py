@@ -3,8 +3,9 @@
 The system has no trained weights; what fixes a run besides the data are
 its random draws: the stacked ensemble RP matrix, the testlog probe (the
 cell permutation and the fixed-seed probe RP matrix,
-`sharp_tpu/core/pipeline.py:71-81`) and, on the large tier, the cell
-reshuffle before the fold partition (`sharp_tpu/core/large.py:428-434`). `torch.Generator` cannot reproduce
+`sharp_tpu/core/pipeline.py:71-81`), on the large tier the cell
+reshuffle before the fold partition (`sharp_tpu/core/large.py:428-434`),
+and the t-SNE start layout of the embedding (`sharp_tpu/analysis/embed.py:89`). `torch.Generator` cannot reproduce
 JAX's threefry streams, so a comparison between the two packages makes
 these arrays once (with the JAX package, or with numpy) and hands them to
 the port as numpy arrays through the functions here.
@@ -43,6 +44,16 @@ def testlog_probe_from_jax(
         perm=torch.from_numpy(np.array(perm, dtype=np.int64)).to(device),
         R=torch.from_numpy(np.array(R, dtype=np.float32)).to(device),
     )
+
+
+def tsne_layout_from_jax(Y0: np.ndarray, n: int, device="cpu") -> torch.Tensor:
+    """The t-SNE start layout: `Y0` the (n, 2) array of the JAX package's
+    `1e-4 * jax.random.normal(PRNGKey(seed), (n, 2))`, as the port's float32
+    tensor (`visualization_embedding(..., Y0=...)`)."""
+    Y0 = np.asarray(Y0)
+    if Y0.shape != (n, 2):
+        raise ValueError(f"Y0 has shape {Y0.shape}, expected ({n}, 2)")
+    return torch.from_numpy(np.array(Y0, dtype=np.float32)).to(device)
 
 
 def shuffle_perm_from_jax(perm: np.ndarray, n: int) -> torch.Tensor:

@@ -16,6 +16,10 @@ For ward.D the linkage (serial Ward, or the reciprocal-NN ladder with its
 tail kernel) and the cut replay go through the hand-written kernels'
 wrappers (`ops/linkage_cuda.py`): on a CUDA tensor they launch the
 kernels, on a CPU tensor they run the plain loops.
+
+`gethclust`, the reference's legacy export (R/getrowColor.R:134-218),
+clusters a precomputed distance through serial Ward and the cut replay at
+every size, with the silhouette rule and the CH fallback only.
 """
 
 from __future__ import annotations
@@ -299,4 +303,71 @@ def get_opt_hclust(
         "height": res.heights.cpu().numpy()[: n - 1],
         "optN_cluster": int(res.k),
         "oind": int(res.oind),
+    }
+
+
+def gethclust(d, my, *, device="cuda"):
+    """Legacy exported kernel ~ reference `gethclust` (R/getrowColor.R:134-218),
+    numpy in and out: fixed ward.D over a precomputed distance, candidate
+    cuts k = 2..min(40, n-1), middle-tied max median silhouette with the CH
+    fallback at maxsil <= 0.35, and no height-gap rule.
+
+    d: (n, n) distance matrix. my: (n, p) feature matrix for the CH index
+    ("1-corr" variant). Returns the reference's fields f (1-based labels),
+    maxsil, msil, CHind, height, plus oind. As in the JAX package the
+    linkage is serial Ward at every size, so on the card n is padded to at
+    most `ops.linkage_cuda.WARD_SERIAL_MAX_N` (8192).
+    """
+    from sharp_tpu_torch.api import resolve_device
+    from sharp_tpu_torch.ops.distance import PAD_REAL_DIST
+    from sharp_tpu_torch.ops.linkage_cuda import WARD_SERIAL_MAX_N
+
+    dev = resolve_device(device)
+    d = np.asarray(d, np.float32)
+    my = np.asarray(my, np.float32)
+    n = d.shape[0]
+    npad = pad_dim(n)
+    if dev.type == "cuda" and npad > WARD_SERIAL_MAX_N:
+        raise ValueError(
+            f"gethclust: {n} points pad to {npad}, above serial Ward's {WARD_SERIAL_MAX_N} on the "
+            "card (ROADMAP.md, Queue 3)"
+        )
+    mask = np.arange(npad) < n
+    Dp = np.full((npad, npad), PAD_PAD_DIST, np.float32)
+    Dp[:n, :n] = d
+    Dp[:n, n:] = PAD_REAL_DIST
+    Dp[n:, :n] = PAD_REAL_DIST
+    np.fill_diagonal(Dp, 0.0)
+    D_real = np.where(np.outer(mask, mask), Dp, 0.0).astype(np.float32)
+    np.fill_diagonal(D_real, 0.0)
+    Myp = np.zeros((npad, my.shape[1]), np.float32)
+    Myp[:n] = my
+
+    maxN = min(40, n - 1)
+    minN = 2
+    ncand = max(maxN - minN + 1, 1)
+    nc_pad = ((maxN + 9) // 8) * 8
+    mask_t = torch.from_numpy(mask).to(dev)
+    link = linkage(torch.from_numpy(Dp).to(dev), "serial", "ward.D")
+    cuts = cutree_multi_kernel(
+        link.merges, n, mask_t, maxN, minN=minN, ncand=ncand, nc_pad=nc_pad
+    )
+    feats_unit = _unit_rows(torch.from_numpy(Myp).to(dev)) * mask_t[:, None].to(torch.float32)
+    msil, ch = sweep_scores_nested(
+        torch.from_numpy(D_real).to(dev), feats_unit, link.merges, cuts.labels, mask_t, n, maxN,
+        minN=minN, ncand=ncand, nc_pad=nc_pad,
+    )
+    valid = cuts.valid
+    maxsil = torch.where(valid, msil, _NEG).max()
+    if float(maxsil) <= 0.35:
+        oind = int(torch.argmax(torch.where(valid, ch, _NEG)))
+    else:
+        oind = int(_middle_tied_argmax(msil, valid))
+    return {
+        "f": cuts.labels[oind].cpu().numpy()[:n] + 1,
+        "maxsil": float(maxsil),
+        "msil": msil.cpu().numpy(),
+        "CHind": ch.cpu().numpy(),
+        "height": link.heights.cpu().numpy()[: n - 1],
+        "oind": oind,
     }

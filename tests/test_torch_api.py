@@ -28,13 +28,17 @@ def _python(code, cwd=REPO, timeout=300):
 
 
 def test_port_runs_without_importing_jax():
-    """Both tiers of sharp() and sharp_unlimited() over SBLK files on the
-    CPU load no module of JAX and none of the JAX package (tests/conftest.py
-    imports jax, so this runs in a fresh interpreter)."""
+    """Both tiers of sharp(), sharp_unlimited() over SBLK files, the
+    analysis functions and the CLI on the CPU load no module of JAX, none of
+    the JAX package and, without a plot, no matplotlib (tests/conftest.py
+    imports jax, so this runs in a fresh interpreter). Importing the package
+    loads none of its modules."""
     code = (
         "import sys, tempfile\n"
         "sys.path.insert(0, 'tests')\n"
+        "import numpy as np\n"
         "import sharp_tpu_torch\n"
+        "assert not [m for m in sys.modules if m.startswith('sharp_tpu_torch.')]\n"
         "from sharp_tpu_torch.io.blocks import save_blocks\n"
         "from synth import make_tpm_like\n"
         "X, y = make_tpm_like(n_cells=120, n_genes=200, n_types=3, seed=1)\n"
@@ -45,30 +49,63 @@ def test_port_runs_without_importing_jax():
         "save_blocks(d, [X[:70], X[70:]], fmt='sblk')\n"
         "unl = sharp_tpu_torch.sharp_unlimited(d, rN_seed=3, ensize_K=3, partition_ncells=40,\n"
         "                                      resume=False, device='cpu')\n"
-        "import sharp_tpu_torch.carry, sharp_tpu_torch.ops.linkage_cuda\n"
+        "import sharp_tpu_torch.carry, sharp_tpu_torch.ops.linkage_cuda, sharp_tpu_torch.io.rdata\n"
         "assert len(res.pred_clusters) == 120 and big.folds.max() == 1\n"
         "assert len(unl.pred_clusters) == 120\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'sharp_tpu')\n"
-        "             or m.startswith(('jax.', 'jaxlib.', 'sharp_tpu.')))\n"
+        "T = sharp_tpu_torch\n"
+        "mk = T.get_marker_genes(X, res, device='cpu')\n"
+        "mk2 = T.get_marker_genes_unlimited2([X[:, :90], X[:, 90:]], res, device='cpu')\n"
+        "parts = T.get_percluster_exp([X[:70], X[70:]], res)\n"
+        "emb, idx = T.visualization_embedding(res, n_iter=20, device='cpu')\n"
+        "h = T.gethclust(1.0 - np.corrcoef(X[:40]), X[:40], device='cpu')\n"
+        "cfg = T.resolve_config(120, 200)\n"
+        "assert isinstance(cfg, T.SharpConfig) and T.ari(y, y) == 1.0\n"
+        "assert mk.n_markers >= 1 and mk2.n_markers >= 1 and sum(len(v) for v in parts.values()) == 120\n"
+        "assert emb.shape == (120, 2) and len(h['f']) == 40\n"
+        "from sharp_tpu_torch.cli import main\n"
+        "np.savez(d + '/X.npz', X=X)\n"
+        "assert main(['cluster', d + '/X.npz', '--out', d + '/r.npz', '--rN-seed', '3', '--ensize-K', '3',\n"
+        "             '--device', 'cpu']) == 0\n"
+        "assert main(['markers', d + '/X.npz', d + '/r.npz', '--out', d + '/m.npz', '--device', 'cpu']) == 0\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'sharp_tpu', 'matplotlib')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'sharp_tpu.', 'matplotlib.')))\n"
         "assert not bad, bad\n"
         "print('ok', res.N_pred_cluster, unl.N_pred_cluster)\n"
     )
     out = _python(code)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok")
+    assert out.stdout.splitlines()[-1].startswith("ok")
 
 
 def test_port_source_imports_nothing_of_the_jax_package():
-    """No module of the port and not chip_smoke.py names the JAX package in
-    an import."""
+    """No module of the port and not chip_smoke.py names the JAX package or
+    JAX in an import; matplotlib is imported only inside the plot functions
+    (the machine with the card has none)."""
     import re
 
-    pat = re.compile(r"^\s*(import sharp_tpu\b(?!_torch)|from sharp_tpu[ .](?!_torch))", re.M)
+    pat = re.compile(
+        r"^\s*(import (sharp_tpu|jax)\b(?!_torch)|from (sharp_tpu|jax)[ .](?!_torch))", re.M
+    )
+    mpl = re.compile(r"^\s*(import|from) matplotlib\b", re.M)
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "sharp_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     bad = [p for p in paths if pat.search(open(p).read())]
     assert not bad, bad
+    plotting = os.path.join(REPO, "sharp_tpu_torch", "analysis", "plotting.py")
+    assert [p for p in paths if mpl.search(open(p).read())] == [plotting]
+    assert not re.search(r"^(import|from) matplotlib", open(plotting).read(), re.M)
+
+
+def test_lazy_exports_match_the_jax_package():
+    """Every public name of sharp_tpu has its counterpart in the port."""
+    import sharp_tpu
+
+    for name in sharp_tpu.__all__:
+        assert name in sharp_tpu_torch.__all__, name
+        assert callable(getattr(sharp_tpu_torch, name)), name
+    with pytest.raises(AttributeError):
+        sharp_tpu_torch.no_such_name
 
 
 @pytest.mark.parametrize("n,genes,knobs", [
@@ -168,6 +205,15 @@ def test_cuda_request_without_card_raises():
         sharp_tpu_torch.get_opt_hclust(np.random.default_rng(0).normal(size=(30, 5)))
     with pytest.raises(RuntimeError, match="cuda"):
         sharp_tpu_torch.sharp_unlimited([X[:30], X[30:]])
+    y = np.arange(60) % 2
+    for call in (
+        lambda: sharp_tpu_torch.get_marker_genes(X, y),
+        lambda: sharp_tpu_torch.get_marker_genes_unlimited2([X[:, :50], X[:, 50:]], y),
+        lambda: sharp_tpu_torch.visualization_embedding((X[:, :3], X[:, 3:9])),
+        lambda: sharp_tpu_torch.gethclust(1.0 - np.corrcoef(X[:20]), X[:20]),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
     with pytest.raises(ValueError, match="unsupported device"):
         sharp_tpu_torch.sharp(X, device="meta")
 

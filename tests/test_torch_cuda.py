@@ -513,3 +513,58 @@ def test_fold_groups_do_not_change_results_on_card(dev):
         for k in ("finalC", "n_meta", "counts", "k_per", "overflow"):
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
         np.testing.assert_allclose(a["cent_sum"], b["cent_sum"], rtol=1e-5, atol=1e-4)
+
+
+def test_marker_chunk_stats_on_card_equal_cpu(dev):
+    """The marker statistics of a chunk on the card and on the CPU: dp, best
+    cluster and AUROC identical (exact integer rank and tie sums, the same
+    float32 operations), z and the fold change to rtol 1e-5 (the fold
+    change's per-cluster means are a float32 matrix product, summed in
+    another order by cuBLAS); the same call twice on the card identical."""
+    from sharp_tpu_torch.analysis.markers import _gene_chunk_stats
+
+    rng = np.random.default_rng(4)
+    n, G, C = 6000, 512, 9
+    y = rng.integers(0, C, n)
+    X = rng.lognormal(0.5, 1.0, size=(n, G)).astype(np.float32)
+    X[rng.random((n, G)) < 0.6] = 0.0
+    X[:, :40] = np.round(X[:, :40])          # heavy ties
+    X[np.ix_(y == 2, np.arange(50, 60))] *= 20.0
+    oh = torch.from_numpy(np.eye(C, dtype=np.float32)[y])
+    counts = torch.from_numpy(np.bincount(y, minlength=C).astype(np.float32))
+    Xt = torch.from_numpy(X)
+    for ng in (1, 4):
+        cpu = _gene_chunk_stats(Xt, oh, counts, C=C, ng=ng)
+        card = _gene_chunk_stats(Xt.to(dev), oh.to(dev), counts.to(dev), C=C, ng=ng)
+        again = _gene_chunk_stats(Xt.to(dev), oh.to(dev), counts.to(dev), C=C, ng=ng)
+        for a, b in zip(card, again):
+            assert torch.equal(a, b)
+        for i in range(3):
+            assert torch.equal(card[i].cpu(), cpu[i]), ("dp", "best", "auc")[i]
+        for i in (3, 4):
+            np.testing.assert_allclose(card[i].cpu().numpy(), cpu[i].numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [479, 2000])
+def test_gethclust_on_card_equals_cpu(dev, n):
+    """gethclust through serial Ward and the cut replay (n_pad 512 and 2048)
+    on the card and on the CPU: labels, the chosen cut and the heights
+    identical; msil and CH to the tolerance of the sweep's float32 matrix
+    products (tests/test_torch_analysis.py)."""
+    import sharp_tpu_torch
+    from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES
+
+    rng = np.random.default_rng(n)
+    y = rng.integers(0, 6, n)
+    X = (3.0 * np.eye(6)[y] @ rng.normal(size=(6, 20)) + 0.5 * rng.normal(size=(n, 20))).astype(np.float32)
+    d = (1.0 - np.corrcoef(X)).astype(np.float32)
+    before = dict(LAUNCHES)
+    got = sharp_tpu_torch.gethclust(d, X, device=dev)
+    assert LAUNCHES["ward_serial"] == before["ward_serial"] + 1
+    assert LAUNCHES["cutree"] == before["cutree"] + 1
+    ref = sharp_tpu_torch.gethclust(d, X, device="cpu")
+    np.testing.assert_array_equal(got["f"], ref["f"])
+    np.testing.assert_array_equal(got["height"], ref["height"])
+    assert got["oind"] == ref["oind"]
+    np.testing.assert_allclose(got["msil"], ref["msil"], atol=1e-6)
+    np.testing.assert_allclose(got["CHind"], ref["CHind"], rtol=1e-4)
