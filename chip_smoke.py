@@ -16,7 +16,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               at (1, 1024, 1000 real), at (1, 1024) on tied sMetaC-like
               centroids (near-duplicate replicas, half exact copies), at
               (2, 200) and (2, 257) on both sides of its shared-memory tier,
-              and in bf16 at (1, 2048); the cut replay on the f32 merges.
+              in bf16 at (1, 2048), and in f32 at (1, 8320), above n 8192
+              where its row state moves to a global scratch (one call, the
+              plain loop timed once); the cut replay on the f32 merges.
               Serial Ward is timed per shape (ms and microseconds per
               merge). Large-tier shapes, from the
               first fold group of the flagship block (G=16 folds x K=5
@@ -92,13 +94,36 @@ Phases, in order; any failure raises and the script exits non-zero:
               the joint P and the loop timed apart. (d) python -m
               sharp_tpu_torch cluster, markers and embed in subprocesses
               with the default device on 479 x 20,000: ARI >= 0.9, the JAX
-              CLI's npz keys.
+              CLI's npz keys. (e) gethclust at 8,300 points (n_pad 8704,
+              above the old cap of 8192): its serial Ward linkage identical
+              to the plain loop on the same padded matrix; one call timed.
+  8. parallel  folds and members over two shards, both on this card, and two
+              processes. Run after phase 7 ((a), (b)) and after phase 6 (b)
+              ((c), before its directory is removed). (a) Phase 5 (a)'s input
+              and draws with n_devices=2, and with n_devices=2,
+              ensemble_axis=2, ensize_K=4 (against ensize_K=4 on one
+              device): labels, per-member counts and folds identical to one
+              device, on the card and on the CPU. (b) The flagship block with
+              n_devices=2: labels identical to phase 5 (b)'s, ARI >= 0.9; its
+              wall beside phase 5 (b)'s. In (a) and (b), on each shard
+              (ops.linkage_cuda.SHARD_LAUNCHES) the round kernel at every
+              ladder level and the tail kernel once per group, a cut replay
+              per linkage and, on each data shard's first device, serial Ward
+              at least once per fold. (c) Two processes of the CLI's
+              `unlimited <phase 6 (b)'s directory> --multihost --no-resume`
+              with phase 6 (b)'s knobs (torch.distributed over gloo on a free
+              localhost port), each printing its launch counts after the
+              command: process 0's labels, then process 1's, equal phase 6
+              (b)'s; both report its cluster count; ARI >= 0.95 with at most
+              57 clusters; each process launched every kernel its two blocks'
+              folds need, as in (a) and (b).
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it holds the card's name and power limit as nvidia-smi prints them,
 and the one before that the kernels' JSON record: per kernel its launches
 in the run of phase 6 (b) (and, under launches_by_path, in the flagship run
-of phase 5 (b) and in phase 7 (a)'s gethclust calls), its largest difference from the plain version, its time
+of phase 5 (b), in phase 7 (a)'s gethclust calls and in phase 8 (b), the
+flagship block over two shards), its largest difference from the plain version, its time
 per call (and device_ms, the kernel alone), the plain version's, its bound
 and what bounds it. No single PyTorch call
 computes any of these functions, so library_ms is null. The full record
@@ -250,7 +275,7 @@ def _bound(nbytes, flops=0.0):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def _hold_ward(name, D, n_real, store_name):
+def _hold_ward(name, D, n_real, store_name, plain_reps=PLAIN_REPS):
     """Serial Ward on D in one storage type against its plain version:
     merges and heights identical; its time, microseconds per merge, the
     plain version's time and the bound. Returns the row and the merges."""
@@ -277,7 +302,7 @@ def _hold_ward(name, D, n_real, store_name):
     row = dict(
         shape=[K, n], n_real=n_real, store=store_name, max_abs_err=err, ms=ms,
         us_per_merge=1e3 * ms / (n - 1), bound_ms=bound, bound_by=by,
-        plain_ms=_median_ms(lambda: ward_linkage(D, store_dtype=store), PLAIN_REPS),
+        plain_ms=_median_ms(lambda: ward_linkage(D, store_dtype=store), plain_reps),
     )
     _device_ms_later(row, "device_ms", lambda: ward_linkage_serial(D, store_dtype=store),
                      "ward_serial_kernel", f"ward_serial {name} {store_name}")
@@ -443,6 +468,10 @@ def phase_kernels(dev, record, Xbig, ybig):
     _hold_ward_and_cutree("ward_2x257", _random_problem(dev, 2, 257, 250, seed=5), 250, rows)
     rows["ward_1x2048"] = {"bf16": _hold_ward("ward_1x2048", _random_problem(dev, 1, 2048, 2000, seed=6),
                                               2000, "bf16")[0]}
+    # above n 8192 the row cache's state leaves shared memory for a global
+    # scratch (no size cap): one problem at n 8320
+    rows["ward_1x8320"] = {"f32": _hold_ward("ward_1x8320", _random_problem(dev, 1, 8320, 8280, seed=7),
+                                             8280, "f32", plain_reps=1)[0]}
 
     # --- large-tier shapes: the first fold group of the flagship block ------
     D, big_cfg = _fold_group_distances(Xbig, dev)
@@ -661,6 +690,7 @@ def _run_counted(X, entry="sharp", **kw):
     log, saved = _RouteLog(), linkage_cuda.ROUTES
     linkage_cuda.ROUTES = log
     try:
+        linkage_cuda.SHARD_LAUNCHES.clear()
         linkage_cuda.LAUNCHES.update(dict.fromkeys(linkage_cuda.LAUNCHES, 0))
         t0 = time.perf_counter()
         res = getattr(sharp_tpu_torch, entry)(X, **kw)
@@ -800,31 +830,42 @@ def _timed_parts(torch):
     return acc, saved
 
 
-def phase_large(dev, record, Xbig, ybig):
-    import torch
-
-    from sharp_tpu_torch.analysis.ari import ari
-    from sharp_tpu_torch.config import resolve_config
+def _large_a_input(ensize_K=None):
+    """Phase 5 (a)'s 6,000 x 5,000 input and its numpy-made draws (the RP
+    matrices, the testlog probe, the cell reshuffle); with `ensize_K`, the
+    first ensize_K members of the same RP matrices."""
     from sharp_tpu_torch import carry
-    from sharp_tpu_torch.core.large import fold_sizes
+    from sharp_tpu_torch.config import resolve_config
     from sharp_tpu_torch.core.pipeline import preprocess
     from synth import make_tpm_like
 
-    import sharp_tpu_torch
-
-    out = {}
-    # (a) card vs CPU with the same draws; also the warm-up of the large tier
     n = 6000
     X, y = make_tpm_like(n_cells=n, n_genes=5000, n_types=10, seed=0)
     cfg = resolve_config(n, X.shape[1], **SEED_KW)
     genes = preprocess(X, cfg).shape[1]
     K, p = cfg.ensize_K, cfg.reduced_ndim
     rng = np.random.default_rng(6000)
+    R = _ternary(rng, genes, K * p)
+    k = ensize_K or K
     draws = dict(
-        rM=carry.rp_from_jax(_ternary(rng, genes, K * p), K, p),
+        rM=carry.rp_from_jax(R[:, : k * p], k, p),
         testlog_probe=carry.testlog_probe_from_jax(rng.permutation(n), _ternary(rng, genes, p), n, genes, p),
         shuffle_perm=carry.shuffle_perm_from_jax(rng.permutation(n), n),
     )
+    return X, y, draws
+
+
+def phase_large(dev, record, Xbig, ybig):
+    import torch
+
+    from sharp_tpu_torch.analysis.ari import ari
+    from sharp_tpu_torch.core.large import fold_sizes
+
+    import sharp_tpu_torch
+
+    out = {}
+    # (a) card vs CPU with the same draws; also the warm-up of the large tier
+    X, y, draws = _large_a_input()
     on_card, wall, counts, _ = _run_counted(X, device=dev, **draws, **SEED_KW)
     t0 = time.perf_counter()
     on_cpu = sharp_tpu_torch.sharp(X, device="cpu", **draws, **SEED_KW)
@@ -964,7 +1005,50 @@ def _analysis_gethclust(dev, out):
             raise AssertionError(f"gethclust n={n}: msil {msil_err} (<= 1e-6) or CH {ch_rel} (<= 1e-4 rel)")
         out[f"gethclust_{n}"] = row
     out["gethclust_launches"] = counts
+    out["gethclust_8300"] = _gethclust_above_8192(dev)
     return counts
+
+
+def _gethclust_above_8192(dev):
+    """gethclust at 8,300 points (n_pad 8704, above the old cap of 8192) on
+    the card: its linkage, serial Ward with the row state in the global
+    scratch, identical to the plain loop on the same padded matrix; the
+    heights returned are its first n - 1. One call, timed."""
+    import torch
+
+    import sharp_tpu_torch
+    from sharp_tpu_torch.ops import select
+    from sharp_tpu_torch.ops.linkage import ward_linkage
+
+    n = 8300
+    rng = np.random.default_rng(n)
+    y = rng.integers(0, 6, n)
+    X = (3.0 * np.eye(6)[y] @ rng.normal(size=(6, 20)) + 0.5 * rng.normal(size=(n, 20))).astype(np.float32)
+    d = (1.0 - np.corrcoef(X)).astype(np.float32)
+    seen = {}
+    real = select.linkage
+
+    def spy(D, backend, method):
+        out = real(D, backend, method)
+        seen.update(D=D, out=out)
+        return out
+
+    select.linkage = spy
+    try:
+        got, card_s = _synced(torch, lambda: sharp_tpu_torch.gethclust(d, X, device=dev))
+    finally:
+        select.linkage = real
+    ref = ward_linkage(seen["D"])
+    same = bool(torch.equal(seen["out"].merges, ref.merges) and torch.equal(seen["out"].heights, ref.heights)
+                and np.array_equal(got["height"], ref.heights.cpu().numpy()[: n - 1]))
+    row = dict(n=n, n_pad=int(seen["D"].shape[-1]), card_s=card_s, clusters=int(got["f"].max()),
+               linkage_identical_to_plain=same)
+    print(f"[analysis] gethclust n={n}: {row}", flush=True)
+    if not same or not 2 <= row["clusters"] <= 40:
+        raise AssertionError(f"gethclust n={n}: {row}")
+    del seen, ref
+    torch.cuda.empty_cache()
+    return row
 
 
 def _analysis_markers(dev, out, Xbig, labels):
@@ -1316,7 +1400,203 @@ def phase_unlimited(dev, record, tmp):
         sblk_bytes=sblk_bytes, datagen_s=gen_s,
     )
     record["unlimited"] = out
+    return counts, dict(dir=data, labels=res.pred_clusters, clusters=res.N_pred_cluster, y=y, wall_s=wall,
+                        knobs=api_kw)
+
+
+# --- the parallel paths ---------------------------------------------------------
+
+
+def _same_result(a, b):
+    return (np.array_equal(a.pred_clusters, b.pred_clusters) and np.array_equal(a.per_member_k, b.per_member_k)
+            and np.array_equal(a.folds, b.folds))
+
+
+def _gate_launches(label, c, folds, groups):
+    """Every kernel in one shard's or one process's launch counts `c`: per
+    fold group the tail kernel once and the round kernel at its 3 ladder
+    levels, serial Ward at least once for each of `folds` folds' wMetaC
+    (0 on an ens shard that runs no wMetaC), a cut replay per linkage."""
+    if c is None or c["rnn_tail"] < groups or c["rnn_round"] < 3 * c["rnn_tail"] or (
+        c["ward_serial"] < folds or c["cutree"] < c["ward_serial"] + c["rnn_tail"]
+    ):
+        raise AssertionError(f"parallel {label} (wMetaC of {folds} folds, >= {groups} fold groups) did not "
+                             f"launch every kernel: {c}")
+
+
+def _gate_shards(label, shards, T, n_data, n_ens):
+    """_gate_launches on every shard of an (n_data, n_ens) mesh over T folds:
+    data shard d's folds are block_slice(T, d, n_data); each of its ens
+    shards runs the ladder of their groups, its first the folds' wMetaC."""
+    from sharp_tpu_torch.parallel.multihost import block_slice
+
+    for d in range(n_data):
+        folds = len(block_slice(T, d, n_data))
+        for e in range(n_ens):
+            _gate_launches(f"{label} shard {d},{e}", shards.get(f"{d},{e}"), folds if e == 0 else 0,
+                           math.ceil(folds / GROUP))
+
+
+def phase_parallel_folds(dev, record, Xbig, ybig, flagship):
+    """Phase 8 (a) and (b): folds and ensemble members over two shards, both
+    on this card. Returns the launches of (b), the flagship block."""
+    import sharp_tpu_torch
+    from sharp_tpu_torch.analysis.ari import ari
+    from sharp_tpu_torch.core.large import fold_sizes
+    from sharp_tpu_torch.ops import linkage_cuda
+    from sharp_tpu_torch.parallel import sharded
+
+    out = {}
+    # (a) phase 5 (a)'s input and draws, three ways, on the card and the CPU
+    X, y, d = _large_a_input()
+    X4, _, d4 = _large_a_input(ensize_K=4)
+    t0 = time.perf_counter()
+    one = sharp_tpu_torch.sharp(X, device=dev, **d, **SEED_KW)
+    runs = {
+        "n_devices_2": (dict(n_devices=2), X, d, one),
+        "ens_2x_k4": (dict(n_devices=2, ensemble_axis=2, ensize_K=4), X4, d4,
+                      sharp_tpu_torch.sharp(X4, device=dev, ensize_K=4, **d4, **SEED_KW)),
+    }
+    rows = {}
+    for name, (kw, Xr, dr, ref) in runs.items():
+        card, wall, counts, _ = _run_counted(Xr, device=dev, **kw, **dr, **SEED_KW)
+        shards = {f"{k[0]},{k[1]}": v for k, v in sorted(linkage_cuda.SHARD_LAUNCHES.items())}
+        t = time.perf_counter()
+        cpu = sharp_tpu_torch.sharp(Xr, device="cpu", **kw, **dr, **SEED_KW)
+        cpu_s = time.perf_counter() - t
+        rows[name] = dict(card_equals_one_device=_same_result(card, ref), cpu_equals_one_device=_same_result(cpu, ref),
+                          clusters=card.N_pred_cluster, per_member_k=card.per_member_k.tolist(), wall_s=wall,
+                          cpu_s=cpu_s, launches=counts, launches_by_shard=shards)
+        print(f"[parallel] cells_6000x5000 {name} {kw}: {rows[name]}", flush=True)
+        if not (rows[name]["card_equals_one_device"] and rows[name]["cpu_equals_one_device"]):
+            raise AssertionError(f"parallel (a) {name}: labels, per-member k or folds differ from one device")
+        n_ens = kw.get("ensemble_axis", 1)
+        _gate_shards(f"(a) {name}", shards, len(card.per_member_k), kw["n_devices"] // n_ens, n_ens)
+    rows["phase_s"] = time.perf_counter() - t0
+    out["cells_6000x5000"] = rows
+
+    # (b) the flagship block over two data shards, at full width; each
+    # shard's fold pass timed on the host (it ends in the shard's readback)
+    T = len(fold_sizes(len(ybig), FOLD))
+    spans, real = [], sharded._fold_groups
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        out = real(*a, **k)
+        spans.append((t, time.perf_counter(), len(a[1])))
+        return out
+
+    sharded._fold_groups = timed
+    try:
+        t0 = time.perf_counter()
+        res, wall, counts, routes = _run_counted(Xbig, device=dev, n_devices=2, **SEED_KW)
+    finally:
+        sharded._fold_groups = real
+    spans = [dict(folds=f, start_s=a - t0, end_s=e - t0, seconds=e - a) for a, e, f in sorted(spans)]
+    shards = {f"{k[0]},{k[1]}": v for k, v in sorted(linkage_cuda.SHARD_LAUNCHES.items())}
+    score = ari(ybig, res.pred_clusters)
+    one_wall = record["large"]["flagship_50000x27998"]["auto"]["wall_s"]
+    same = bool(np.array_equal(res.pred_clusters, flagship.pred_clusters))
+    print(
+        f"[parallel] flagship_50000x27998 n_devices=2: {res.N_pred_cluster} clusters, ARI {score:.4f}, labels "
+        f"{'identical to' if same else 'DIFFER from'} phase 5 (b)'s; wall {wall:.3f} s (one device, phase 5 (b): "
+        f"{one_wall:.3f} s); launches {counts}; by shard {shards}; routes {routes}; shards' fold passes {spans}",
+        flush=True,
+    )
+    print(f"[parallel] flagship n_devices=2 stages (s): {json.dumps(_stages(res))}", flush=True)
+    if not same or score < 0.9:
+        raise AssertionError(f"parallel (b): labels identical {same}, ARI {score:.4f} (>= 0.9)")
+    _gate_shards("(b)", shards, T, 2, 1)
+    if routes["cutree"]["serial"]:
+        raise AssertionError(f"parallel (b): cut-replay problems took the serial route: {routes}")
+    out["flagship_50000x27998_n_devices_2"] = dict(
+        wall_s=wall, one_device_wall_s=one_wall, ari=score, clusters=res.N_pred_cluster, labels_identical=same,
+        launches=counts, launches_by_shard=shards, routes=routes, stages=_stages(res), shard_fold_passes=spans,
+    )
+    record["parallel"] = out
     return counts
+
+
+# `python -m sharp_tpu_torch <argv>` that prints its kernels' launch counts
+# after the command, on a line of its own
+_CLI_COUNTED = (
+    "import json, sys\n"
+    "from sharp_tpu_torch.cli import main\n"
+    "from sharp_tpu_torch.ops import linkage_cuda\n"
+    "rc = main(sys.argv[1:])\n"
+    "print('[launches] ' + json.dumps(linkage_cuda.LAUNCHES), flush=True)\n"
+    "sys.exit(rc)\n"
+)
+
+
+def phase_parallel_processes(dev, record, flag6):
+    """Phase 8 (c): two processes on this card, each running the CLI's
+    `unlimited --multihost --no-resume` over phase 6 (b)'s SBLK directory
+    with its knobs: their labels, concatenated, equal phase 6 (b)'s, and
+    each process launched every kernel its two blocks' folds need."""
+    import re
+    import socket
+
+    import torch
+
+    from sharp_tpu_torch.analysis.ari import ari
+    from sharp_tpu_torch.parallel.multihost import block_slice
+
+    torch.cuda.empty_cache()   # the card's free memory, for the two processes
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    kn = flag6["knobs"]
+    argv = ["--rN-seed", str(kn["rN_seed"]), "--ensize-K", str(kn["ensize_K"]),
+            "--reduced-ndim", str(kn["reduced_ndim"]), "--partition-ncells", str(kn["partition_ncells"]),
+            "--dtype-compute", kn["dtype_compute"], "--device", torch.device(kn["device"]).type,
+            "--multihost", "--no-resume"]
+    tmp = tempfile.mkdtemp(prefix="sharp_smoke_mh_")
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            env = dict(os.environ, PYTHONPATH=HERE, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                       WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _CLI_COUNTED, "unlimited", flag6["dir"],
+                 "--out", os.path.join(tmp, f"p{rank}.npz"), *argv],
+                cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+        outs = [pr.communicate(timeout=600) for pr in procs]
+        wall = time.perf_counter() - t0
+        for rank, (pr, (so, se)) in enumerate(zip(procs, outs)):
+            if pr.returncode != 0:
+                raise AssertionError(f"parallel (c): process {rank} exited {pr.returncode}: {se[-2000:]}")
+        counts = [int(re.search(r"(\d+) clusters", so).group(1)) for so, _ in outs]
+        launches = [json.loads(re.search(r"^\[launches\] (.*)$", so, re.M).group(1)) for so, _ in outs]
+        # each process's sharp_unlimited call, without its start-up
+        call_s = [float(re.search(r"total time: ([0-9.]+)s", so).group(1)) for so, _ in outs]
+        labels = [np.load(os.path.join(tmp, f"p{rank}.npz"))["pred_clusters"] for rank in range(2)]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    combined = np.concatenate(labels)
+    same = bool(np.array_equal(combined, flag6["labels"]))
+    score = ari(flag6["y"], combined)
+    row = dict(wall_s=wall, call_s=call_s, single_process_wall_s=flag6["wall_s"],
+               cells_per_process=[len(x) for x in labels],
+               clusters_reported=counts, labels_identical=same, ari=score, launches_by_process=launches)
+    print(f"[parallel] two processes over the 4 flagship SBLK blocks: {row}", flush=True)
+    if not same or counts[0] != counts[1] or counts[0] != flag6["clusters"]:
+        raise AssertionError(f"parallel (c): labels identical {same}, clusters {counts} (one process: "
+                             f"{flag6['clusters']})")
+    T = math.ceil(API_BLOCK / kn["partition_ncells"])   # folds per block
+    for rank in range(2):
+        blocks = len(block_slice(API_BLOCKS, rank, 2))
+        _gate_launches(f"(c) process {rank}", launches[rank], blocks * T, blocks * math.ceil(T / GROUP))
+    if score < 0.95 or counts[0] > math.ceil(1.5 * API_TYPES):
+        raise AssertionError(f"parallel (c): ARI {score:.4f} (>= 0.95), {counts[0]} clusters "
+                             f"(<= {math.ceil(1.5 * API_TYPES)})")
+    record.setdefault("parallel", {})["two_processes_4x50000x27998"] = row
 
 
 def main() -> int:
@@ -1358,10 +1638,13 @@ def main() -> int:
     phase_slice(dev, record)
     large_counts, flagship = phase_large(dev, record, Xbig, ybig)
     analysis_counts = phase_analysis(dev, record, Xbig, flagship)
+    par_counts = phase_parallel_folds(dev, record, Xbig, ybig, flagship)
     del Xbig, ybig, flagship
     tmp = tempfile.mkdtemp(prefix="sharp_smoke_")
     try:
-        unl_counts = phase_unlimited(dev, record, tmp)
+        unl_counts, flag6 = phase_unlimited(dev, record, tmp)
+        # phase 8 (c) over phase 6 (b)'s SBLK directory, before it is removed
+        phase_parallel_processes(dev, record, flag6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for row, key, fn, kernel, label in _DEFERRED:
@@ -1380,8 +1663,9 @@ def main() -> int:
     r32 = rounds["f32"][max(rounds["f32"])]
 
     def entry(name, replaces, err, ms, plain_ms, bound_ms, bound_by, device_ms=None):
-        # launches: the main path of this slice, sharp_unlimited over the 4
-        # flagship blocks; launches_by_path adds the large tier's flagship run.
+        # launches: sharp_unlimited over the 4 flagship blocks; launches_by_path
+        # adds the large tier's flagship run, phase 7 (a)'s gethclust calls
+        # and this slice's main path, the flagship block over two shards.
         # ms: one call through the wrapper (CUDA events); device_ms: the
         # kernel alone (torch.profiler), null where not measured
         return {
@@ -1390,7 +1674,7 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "device_ms": device_ms,
             "launches_by_path": {"large": large_counts[name], "unlimited": unl_counts[name],
-                                 "analysis": analysis_counts[name]},
+                                 "analysis": analysis_counts[name], "parallel": par_counts[name]},
         }
 
     kernels = {

@@ -10,13 +10,15 @@ block, the large tier as folds of about partition_ncells cells, wMetaC per
 fold and sMetaC across folds. Ward linkage goes through the serial Ward
 kernel up to a padded size of 1024 and through the reciprocal-NN ladder
 with its tail kernel above ("auto"); `linkage_backend="pallas_bf16"` takes
-the serial kernel with bf16 storage at every size. What is not ported yet
-raises `NotImplementedError` with its ROADMAP.md entry: several devices
-(`n_devices > 1`, `multihost`).
+the serial kernel with bf16 storage at every size. `n_devices > 1` runs the
+large tier's folds (and, with `ensemble_axis`, its ensemble members) over a
+mesh of devices (`parallel/mesh.py`, `parallel/sharded.py`), with the
+labels of one device.
 
 `sharp_unlimited` (from `parallel/streaming.py`) streams blocks (in memory
 or SBLK files) through the fold pass of the large tier, one sMetaC fuse
-per block and one global sMetaC over the block clusters.
+per block and one global sMetaC over the block clusters; with
+`multihost=True` over several processes (`parallel/multihost.py`).
 """
 
 from __future__ import annotations
@@ -93,11 +95,6 @@ def sharp(
     timer = StageTimer()
     n, g = X.shape
     cfg = resolve_config(n, g, **knobs)
-    if cfg.n_devices > 1:
-        raise NotImplementedError(
-            f"n_devices={cfg.n_devices}: folds over several cards are not ported "
-            "yet (ROADMAP.md, Queue 1 item 9, 'parallel/{mesh,sharded,multihost}.py')"
-        )
     n_pad = pad_dim(n) if cfg.is_small else cfg.block_pad
     resolve_linkage_backend(cfg.linkage_backend, n_pad, cfg.hmethod)
     rN_seed = resolve_seed(cfg.rN_seed)

@@ -53,7 +53,12 @@ def _add_knobs(p):
     p.add_argument("--partition-ncells", type=int, default=None)
     p.add_argument("--exp-type", type=str, default=None)
     p.add_argument("--n-devices", type=int, default=None,
-                   help="above 1 raises NotImplementedError: one card only")
+                   help="run the large tier's folds over this many shards, "
+                   "shard d on card d %% device_count() (shards may share a "
+                   "card; with --device cpu, all on the CPU); labels as on one device")
+    p.add_argument("--dtype-compute", type=str, default=None, dest="dtype_compute",
+                   choices=["float32", "bfloat16"],
+                   help="input type of the RP product (default float32)")
     p.add_argument(
         "--linkage-backend", type=str, default=None, dest="linkage_backend",
         choices=["auto", "xla", "pallas", "pallas_bf16", "rnn", "rnn_bf16"],
@@ -68,7 +73,7 @@ def _knobs(args):
     for k in (
         "rN_seed", "ensize_K", "reduced_ndim", "N_cluster",
         "base_ncells", "partition_ncells", "exp_type", "n_devices",
-        "linkage_backend",
+        "linkage_backend", "dtype_compute",
     ):
         v = getattr(args, k, None)
         if v is not None:
@@ -101,8 +106,10 @@ def main(argv=None):
     pu.add_argument("--out", required=True)
     pu.add_argument(
         "--multihost", action="store_true",
-        help="several processes over disjoint slices of the blocks: raises "
-        "NotImplementedError (not ported yet)",
+        help="one of several processes over disjoint slices of the blocks "
+        "(torch.distributed over gloo, joined from torchrun's MASTER_ADDR, "
+        "MASTER_PORT, WORLD_SIZE and RANK; one process without them); "
+        "the result holds this process's cells",
     )
     pu.add_argument("--no-resume", action="store_true",
                     help="ignore any existing per-block manifest")

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from sharp_tpu_torch.config import SharpConfig
-from sharp_tpu_torch.core.block import cluster_block_ensemble
+from sharp_tpu_torch.core.block import BlockEnsembleResult, cluster_block_ensemble
 from sharp_tpu_torch.core.wmetac import wmetac
 
 
@@ -83,8 +83,33 @@ def fold_program(
         sil_thre=sil_thre, height_Ntimes=height_Ntimes,
         indN_cluster=indN_cluster, linkage_backend=linkage_backend, hmethod=hmethod,
     )
+    out = fold_summary(
+        blk, masks, nreal, K=K, minN=minN, ncand=ncand, nc_pad=nc_pad, allc_pad=allc_pad,
+        height_Ntimes=height_Ntimes, maxN=maxN, linkage_backend=linkage_backend, hmethod=hmethod,
+    )
+    return out if folded else FoldSummary(*(x[0] for x in out))
+
+
+def fold_summary(
+    blk: BlockEnsembleResult,      # (G, B, K) labels and the rest, G folds
+    masks: torch.Tensor,           # (G, B) bool
+    nreal: Sequence[int],
+    *,
+    K: int,
+    minN: int,
+    ncand: int,
+    nc_pad: int,
+    allc_pad: int,
+    height_Ntimes: float,
+    maxN: int,
+    linkage_backend: str = "auto",
+    hmethod: str = "ward.D",
+) -> FoldSummary:
+    """wMetaC per fold on a group's ensemble result, and the fold summaries
+    (batched over the group). The mesh's ensemble split
+    (`parallel/sharded.py`) gathers its shards' members into `blk` first."""
     fields = {name: [] for name in FoldSummary._fields}
-    for g in range(Xf.shape[0]):
+    for g in range(masks.shape[0]):
         wres = wmetac(
             blk.labels[g], masks[g], nreal[g], maxN,
             K=K, nc_pad=nc_pad, allc_pad=allc_pad,
@@ -100,8 +125,7 @@ def fold_program(
         fields["counts"].append(oh.sum(dim=0))
         fields["x0"].append(wres.x0)
         fields["overflow"].append(wres.overflow.to(oh.device))
-    out = FoldSummary(
+    return FoldSummary(
         **{k: torch.stack(v) for k, v in fields.items() if v},
         mean_proj=blk.mean_proj, k_per=blk.k_per, maxsil=blk.maxsil,
     )
-    return out if folded else FoldSummary(*(x[0] for x in out))

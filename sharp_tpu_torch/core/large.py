@@ -9,9 +9,10 @@ Counterpart of `sharp_tpu/core/large.py`, mirroring SHARP_large
 mean-RP space (:747-773), un-permute + tiny-cluster merge + relabel
 (:775-843).
 
-The folds run in groups through `parallel/sharded.process_folds_grouped`;
-cross-fold communication is exactly the per-fold summaries (labels,
-centroid stats, mean-RP features), O(clusters x p). The host-side helpers
+The folds run in groups through `parallel/sharded.process_folds`, over a
+mesh of devices when `n_devices > 1`; cross-fold communication is
+exactly the per-fold summaries (labels, centroid stats, mean-RP features),
+O(clusters x p). The host-side helpers
 here are numpy copies of the JAX package's (that module imports jax).
 """
 
@@ -253,7 +254,8 @@ def sharp_large(
     permutation (`sharp_tpu_torch.carry`); by default all are drawn from
     `rN_seed` on `device`.
     """
-    from sharp_tpu_torch.parallel.sharded import process_folds_grouped
+    from sharp_tpu_torch.parallel.mesh import resolve_mesh
+    from sharp_tpu_torch.parallel.sharded import process_folds
 
     timer = timer or StageTimer()
     n, genes = X.shape
@@ -289,9 +291,7 @@ def sharp_large(
             R_all = R_all.to(dev, dtype)
 
     with timer.stage("fold_ensemble"):
-        fold_results = process_folds_grouped(
-            X, sizes, block_pad, R_all, cfg, logf, dev, rows=perm
-        )
+        fold_results = process_folds(X, sizes, block_pad, R_all, cfg, logf, dev, resolve_mesh(cfg, dev), rows=perm)
 
     with timer.stage("smetac"):
         fres = fuse_folds(

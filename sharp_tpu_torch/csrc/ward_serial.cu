@@ -25,7 +25,11 @@
 //     never written back; two __syncthreads per merge.
 //   * n > 256: the global tier, on a working copy the wrapper makes
 //     (symmetric, rounded to the storage type, rows padded to a multiple of
-//     8 entries); three __syncthreads per merge.
+//     8 entries); three __syncthreads per merge. The row cache's seven words
+//     per row sit in shared memory up to n 8192 (225 KB); above, in a global
+//     scratch of (K, 7, n) words the wrapper allocates, as the cut replay
+//     keeps its state above its shared-memory limit (cutree.cu). The
+//     per-warp partials stay in shared memory.
 //   * The TPU kernel's deferred column ring and its one-hot flush are not
 //     carried over: they work around the cost of a column write on the TPU.
 
@@ -37,28 +41,33 @@
 
 namespace {
 
+using sharp::kStateSmemMaxN;
 using sharp::kTileMaxN;
 using sharp::kWardMaxThreads;
+using sharp::kWardPartBytes;
 using sharp::Store;
 using sharp::tile_bytes;
 using sharp::tri_row;
 using sharp::ward_merges;
+using sharp::ward_rows_bytes;
 using sharp::ward_state;
 using sharp::ward_state_bytes;
 using sharp::WardState;
 
 // The tile tier runs at most kTileMaxN threads, which leaves each up to 255
 // registers (at 1024 threads the merge loop spills).
-template <typename T, bool kTile>
+template <typename T, bool kTile, bool kGlobalState>
 __global__ void __launch_bounds__(kTile ? kTileMaxN : kWardMaxThreads)
 ward_serial_kernel(const float* __restrict__ D,   // (K, n, n) float32, read by the tile tier
                    T* __restrict__ W,             // (K, n, ldw) working copy of the global tier
+                   unsigned char* S,              // (K, 7, n) words of row state, n > kStateSmemMaxN
                    int32_t* __restrict__ merges,  // (K, n-1, 2)
                    float* __restrict__ heights,   // (K, n-1)
                    int n, int ldw) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* tile = reinterpret_cast<T*>(smem);
-  const WardState st = ward_state(smem + (kTile ? tile_bytes<T>(n) : 0), n);
+  const WardState st = kGlobalState ? ward_state(S + blockIdx.x * ward_rows_bytes(n), smem, n)
+                                    : ward_state(smem + (kTile ? tile_bytes<T>(n) : 0), n);
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -87,34 +96,40 @@ ward_serial_kernel(const float* __restrict__ D,   // (K, n, n) float32, read by 
                         });
 }
 
-template <typename T, bool kTile>
-int launch(const void* D, void* W, void* merges, void* heights, int K, int n, int ldw,
+template <typename T, bool kTile, bool kGlobalState = false>
+int launch(const void* D, void* W, void* S, void* merges, void* heights, int K, int n, int ldw,
            cudaStream_t stream) {
-  const size_t smem = (kTile ? tile_bytes<T>(n) : 0) + ward_state_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(ward_serial_kernel<T, kTile>,
+  const size_t smem = kGlobalState ? kWardPartBytes : (kTile ? tile_bytes<T>(n) : 0) + ward_state_bytes(n);
+  cudaError_t err = cudaFuncSetAttribute(ward_serial_kernel<T, kTile, kGlobalState>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ward_serial_kernel<T, kTile><<<K, sharp::ward_threads(n), smem, stream>>>(
-      (const float*)D, (T*)W, (int32_t*)merges, (float*)heights, n, ldw);
+  ward_serial_kernel<T, kTile, kGlobalState><<<K, sharp::ward_threads(n), smem, stream>>>(
+      (const float*)D, (T*)W, (unsigned char*)S, (int32_t*)merges, (float*)heights, n, ldw);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_store(const void* D, void* W, void* S, void* merges, void* heights, int K, int n, int ldw,
+                 cudaStream_t s) {
+  if (n <= kTileMaxN) return launch<T, true>(D, W, S, merges, heights, K, n, ldw, s);
+  if (n <= kStateSmemMaxN) return launch<T, false>(D, W, S, merges, heights, K, n, ldw, s);
+  return launch<T, false, true>(D, W, S, merges, heights, K, n, ldw, s);
 }
 
 }  // namespace
 
 // D (K, n, n) float32 for n <= 256; W (K, n, ldw) in the storage type for
-// n > 256 (ldw a multiple of 8). store: 0 float32, 1 bfloat16.
-extern "C" int sharp_ward_serial_launch(const void* D, void* W, void* merges, void* heights,
+// n > 256 (ldw a multiple of 8); S (K, 7, n) 4-byte words for n > 8192.
+// store: 0 float32, 1 bfloat16.
+extern "C" int sharp_ward_serial_launch(const void* D, void* W, void* S, void* merges, void* heights,
                                         int K, int n, int ldw, int store, void* stream) {
   if (K <= 0 || n < 2) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   const bool tile = n <= kTileMaxN;
   if (tile ? D == nullptr : (W == nullptr || ldw < n || ldw % 8 != 0)) return (int)cudaErrorInvalidValue;
-  if (store == 1) {
-    return tile ? launch<__nv_bfloat16, true>(D, W, merges, heights, K, n, ldw, s)
-                : launch<__nv_bfloat16, false>(D, W, merges, heights, K, n, ldw, s);
-  }
-  return tile ? launch<float, true>(D, W, merges, heights, K, n, ldw, s)
-              : launch<float, false>(D, W, merges, heights, K, n, ldw, s);
+  if (n > kStateSmemMaxN && S == nullptr) return (int)cudaErrorInvalidValue;
+  if (store == 1) return launch_store<__nv_bfloat16>(D, W, S, merges, heights, K, n, ldw, s);
+  return launch_store<float>(D, W, S, merges, heights, K, n, ldw, s);
 }
 
 #ifdef WARD_PROFILE

@@ -124,9 +124,11 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
   }
 }
 
-// The row cache and its scratch in shared memory: the minima in two
-// buffers; argmins, runner-up values and runner-up indices in one; sizes;
-// the rescan list; the per-warp partials of the pop and of row i.
+// The row cache and its scratch: the minima in two buffers; argmins,
+// runner-up values and runner-up indices in one; sizes; the rescan list (the
+// seven words per row, in shared memory up to n kStateSmemMaxN, above it in
+// a global scratch); the per-warp partials of the pop and of row i (always
+// in shared memory).
 struct WardState {
   float* cmin;    // 2n: row minima, two buffers
   int* carg;      // n: first index of the minimum
@@ -140,23 +142,37 @@ struct WardState {
   int* row_i;
 };
 
+// the seven words per row, and the per-warp partials
+__host__ __device__ __forceinline__ size_t ward_rows_bytes(int n) { return 7 * sizeof(float) * (size_t)n; }
+constexpr size_t kWardPartBytes = 4 * 32 * 4;
+// the most rows whose words fit beside the partials in the 227 KB of shared
+// memory a block may opt in to (225 KB at 8192)
+constexpr int kStateSmemMaxN = 8192;
+
 __host__ __device__ __forceinline__ size_t ward_state_bytes(int n) {
-  return 7 * sizeof(float) * (size_t)n + 4 * 32 * 4;
+  return ward_rows_bytes(n) + kWardPartBytes;
 }
 
-__device__ __forceinline__ WardState ward_state(unsigned char* p, int n) {
+// rows: the seven words per row (shared or global memory); part: the
+// partials (shared memory)
+__device__ __forceinline__ WardState ward_state(unsigned char* rows, unsigned char* part, int n) {
   WardState s;
-  s.cmin = reinterpret_cast<float*>(p);
+  s.cmin = reinterpret_cast<float*>(rows);
   s.carg = reinterpret_cast<int*>(s.cmin + 2 * n);
   s.smin = reinterpret_cast<float*>(s.carg + n);
   s.sarg = reinterpret_cast<int*>(s.smin + n);
   s.sizes = reinterpret_cast<float*>(s.sarg + n);
   s.todo = reinterpret_cast<int*>(s.sizes + n);
-  s.part_v = reinterpret_cast<float*>(s.todo + n);
+  s.part_v = reinterpret_cast<float*>(part);
   s.part_i = reinterpret_cast<int*>(s.part_v + 32);
   s.row_v = reinterpret_cast<float*>(s.part_i + 32);
   s.row_i = reinterpret_cast<int*>(s.row_v + 32);
   return s;
+}
+
+// all of the state in shared memory at p
+__device__ __forceinline__ WardState ward_state(unsigned char* p, int n) {
+  return ward_state(p, p + ward_rows_bytes(n), n);
 }
 
 // `steps` merges of one problem of n points (the tile tier: `tile` holds

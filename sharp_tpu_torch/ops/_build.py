@@ -6,7 +6,9 @@ library, compiled by `nvcc` for Hopper (`sm_90a`) at first use into
 The libraries are keyed on a hash of their source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source is rebuilt and a built
 one is reused. All sources compile in
-parallel, one `nvcc` each.
+parallel, one `nvcc` each. The first call builds and loads under a lock, so
+threads that arrive at once (the shards of `parallel/sharded.py`) wait for
+one build.
 
 Flags: `--fmad=false` keeps the float arithmetic unfused (the Ward kernel
 also spells its update with round-to-nearest intrinsics), and there is no
@@ -21,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Tuple
@@ -40,7 +43,7 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "ward_serial.cu": {
         "sharp_ward_serial_launch": (
-            _INT, [_VOID_P] * 4 + [_INT, _INT, _INT, _INT, _VOID_P]
+            _INT, [_VOID_P] * 5 + [_INT, _INT, _INT, _INT, _VOID_P]
         ),
     },
     "cutree.cu": {
@@ -129,11 +132,16 @@ def _load() -> Tuple[Dict[str, ctypes.CDLL], BuildReport]:
     return libs, report
 
 
+_LOCK = threading.Lock()
+
+
 def load_kernels() -> Dict[str, ctypes.CDLL]:
     """The loaded kernel libraries by source name, built on first use."""
-    return _load()[0]
+    with _LOCK:
+        return _load()[0]
 
 
 def build_report() -> BuildReport:
     """Build the kernels if needed and say what that took."""
-    return _load()[1]
+    with _LOCK:
+        return _load()[1]

@@ -13,10 +13,14 @@ A wrapper launches its kernel for a CUDA tensor and takes the kernel's
 plain version (`ops/linkage.py`) only for a CPU tensor; any other device,
 dtype, shape or layout raises. Launches go on the current CUDA stream and
 do not synchronise. Each wrapper adds one to its kernel's entry of
-`LAUNCHES` where it launches the kernel, and nowhere else.
+`LAUNCHES` where it launches the kernel, and nowhere else, under a lock:
+the shards of `parallel/sharded.py` launch from several threads.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -40,19 +44,60 @@ CUTREE_SMEM_MAX_N = 232448 // 8
 RNN_TAIL_MAX_N = 1024
 # serial Ward keeps the packed triangle in shared memory up to n 256
 # (kTileMaxN in csrc/ward_tile.cuh), above that the matrix in global
-# memory and seven words per row in shared memory (225 KB at 8192)
+# memory and seven words per row in shared memory up to n 8192 (225 KB,
+# kStateSmemMaxN), above that in a global scratch
 WARD_TILE_MAX_N = 256
-WARD_SERIAL_MAX_N = 8192
+WARD_STATE_SMEM_MAX_N = 8192
 # storage type codes of the kernels that store float32 or bfloat16
 _STORE = {torch.float32: 0, torch.bfloat16: 1}
 # launches of each kernel, keyed by the kernel's name; owned by this module,
 # so a wrapper replaced by a test double does not take the count with it
 LAUNCHES = dict.fromkeys(("ward_serial", "cutree", "rnn_tail", "rnn_round"), 0)
+# the same launches by the mesh position (data, ens) of the shard thread that
+# made them (`shard_scope`), kept until cleared
+SHARD_LAUNCHES = {}
+_LAUNCHES_LOCK = threading.Lock()
+_SHARD = threading.local()
+
+
+@contextlib.contextmanager
+def shard_scope(key):
+    """Count the calling thread's launches under `key` in SHARD_LAUNCHES too
+    (`parallel/sharded.py` runs each shard's thread under its position)."""
+    _SHARD.key = key
+    try:
+        yield
+    finally:
+        _SHARD.key = None
+
+
+def _count(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
+        key = getattr(_SHARD, "key", None)
+        if key is not None:
+            SHARD_LAUNCHES.setdefault(key, dict.fromkeys(LAUNCHES, 0))[name] += 1
+
+
+class _ThreadRoutes:
+    """The route tensors of the calling thread's last launches (None before
+    its first): each shard thread reads its own."""
+
+    def __init__(self):
+        self._local = threading.local()
+
+    def __setitem__(self, key, value):
+        setattr(self._local, key, value)
+
+    def __getitem__(self, key):
+        return getattr(self._local, key, None)
+
+
 # the route each problem or lane of the last launch took, an int32 tensor on
 # the card, kept without a sync: the cut replay's per problem (0 parallel,
 # 1 serial) and the tail's per lane (0 the triangle in shared memory, 1 the
-# rows in global memory)
-ROUTES = dict.fromkeys(("cutree", "rnn_tail"))
+# rows in global memory); per thread
+ROUTES = _ThreadRoutes()
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -92,8 +137,8 @@ def ward_linkage_serial(
     if not D.is_contiguous():
         raise ValueError("ward_linkage_serial takes a contiguous D")
     n = D.shape[-1]
-    if not 2 <= n <= WARD_SERIAL_MAX_N:
-        raise ValueError(f"ward_linkage_serial takes 2 <= n <= {WARD_SERIAL_MAX_N}, got {n}")
+    if n < 2:
+        raise ValueError(f"ward_linkage_serial takes n >= 2, got {n}")
     from sharp_tpu_torch.ops._build import load_kernels
 
     lib = load_kernels()["ward_serial.cu"]
@@ -109,14 +154,16 @@ def ward_linkage_serial(
         W = torch.empty((K, n, ldw), dtype=store_dtype, device=D.device)
         upper = torch.triu(D3, 1)
         W[:, :, :n] = upper + upper.transpose(1, 2)
+    # above the shared-memory limit, the row cache's seven words per row
+    S = torch.empty((K, 7, n), dtype=torch.int32, device=D.device) if n > WARD_STATE_SMEM_MAX_N else None
     merges = torch.empty((K, n - 1, 2), dtype=torch.int32, device=D.device)
     heights = torch.empty((K, n - 1), dtype=torch.float32, device=D.device)
     rc = lib.sharp_ward_serial_launch(
-        D3.data_ptr(), None if W is None else W.data_ptr(), merges.data_ptr(),
-        heights.data_ptr(), K, n, ldw, _STORE[store_dtype], _stream(),
+        D3.data_ptr(), None if W is None else W.data_ptr(), None if S is None else S.data_ptr(),
+        merges.data_ptr(), heights.data_ptr(), K, n, ldw, _STORE[store_dtype], _stream(),
     )
     _check_rc(rc, "ward_serial")
-    LAUNCHES["ward_serial"] += 1
+    _count("ward_serial")
     if squeeze:
         return LinkageResult(merges[0], heights[0])
     return LinkageResult(merges, heights)
@@ -175,7 +222,7 @@ def rnn_tail_kernel(
         L, Cn, ldw, _STORE[D.dtype], _stream(),
     )
     _check_rc(rc, "rnn_tail")
-    LAUNCHES["rnn_tail"] += 1
+    _count("rnn_tail")
     ROUTES["rnn_tail"] = routes
     return mi, mj, hh
 
@@ -228,7 +275,7 @@ def rnn_round_kernel(
         rowmin.data_ptr(), rowarg.data_ptr(), L, m, rows.shape[1], _STORE[W.dtype], _stream(),
     )
     _check_rc(rc, "rnn_round")
-    LAUNCHES["rnn_round"] += 1
+    _count("rnn_round")
     return rowmin, rowarg
 
 
@@ -275,7 +322,7 @@ def cutree_snapshots_kernel(
         G, n, minN, ncand, _stream(),
     )
     _check_rc(rc, "cutree")
-    LAUNCHES["cutree"] += 1
+    _count("cutree")
     ROUTES["cutree"] = routes
     return snaps
 

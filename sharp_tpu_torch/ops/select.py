@@ -315,23 +315,16 @@ def gethclust(d, my, *, device="cuda"):
     d: (n, n) distance matrix. my: (n, p) feature matrix for the CH index
     ("1-corr" variant). Returns the reference's fields f (1-based labels),
     maxsil, msil, CHind, height, plus oind. As in the JAX package the
-    linkage is serial Ward at every size, so on the card n is padded to at
-    most `ops.linkage_cuda.WARD_SERIAL_MAX_N` (8192).
+    linkage is serial Ward at every size.
     """
     from sharp_tpu_torch.api import resolve_device
     from sharp_tpu_torch.ops.distance import PAD_REAL_DIST
-    from sharp_tpu_torch.ops.linkage_cuda import WARD_SERIAL_MAX_N
 
     dev = resolve_device(device)
     d = np.asarray(d, np.float32)
     my = np.asarray(my, np.float32)
     n = d.shape[0]
     npad = pad_dim(n)
-    if dev.type == "cuda" and npad > WARD_SERIAL_MAX_N:
-        raise ValueError(
-            f"gethclust: {n} points pad to {npad}, above serial Ward's {WARD_SERIAL_MAX_N} on the "
-            "card (ROADMAP.md, Queue 3)"
-        )
     mask = np.arange(npad) < n
     Dp = np.full((npad, npad), PAD_PAD_DIST, np.float32)
     Dp[:n, :n] = d

@@ -1,45 +1,68 @@
-"""The grouped fold loop of the large tier, on one device.
+"""The fold pass of the large tier: the grouped loop on one device, and its
+mesh variants over several.
 
-Counterpart of the single-device part of `sharp_tpu/parallel/sharded.py`
-(`auto_group`, `process_folds_grouped`). Folds are processed `group` at a
-time through `core/fold.fold_program`: one group's G*K ensemble members
-share one projection, one ladder (its rounds and its tail kernel are paid
-once per group, not once per fold) and one cut-replay launch. Every lane of
-a group is computed as if alone, so the results do not depend on the group
-size.
+Counterpart of `sharp_tpu/parallel/sharded.py`. Folds are processed `group`
+at a time through `core/fold.fold_program`: one group's G*K ensemble
+members share one projection, one ladder (its rounds and its tail kernel
+are paid once per group, not once per fold) and one cut-replay launch.
+Every lane of a group is computed as if alone, so the results do not
+depend on the group size, nor on the mesh.
 
 A dense block is gathered into each group on the host and copied over. A
 `SparseBlock` ships each group as CSR triplets and is densified on the
 device (`io/sparse.py`), with log2(1 + x) applied to the values there; a
 worker thread slices the next group into page-locked staging buffers while
-the device runs the current one. The mesh variants (folds and ensemble
-members over several cards) are not ported yet (ROADMAP.md, Queue 1).
+the device runs the current one.
+
+On a mesh (`parallel/mesh.py`) each data shard takes a contiguous slice of
+the folds and runs the same grouped loop on its own host thread, under a
+stream of its own device: the fold program reads the host a few hundred
+times per selection, so shards without threads of their own would run in
+turn. With an "ens" axis, each ens shard clusters its contiguous group of
+members against its column slice of the RP matrices, and the data shard
+gathers the members in order and runs wMetaC once per fold. Unlike the
+JAX package's SPMD program, the shards need no dummy folds (threads take
+unequal slices) and the sparse feed is not densified on the host.
+
+`indN_cluster` (a fixed cluster count per member) holds for a call of one
+fold only, as in the JAX package: the grouped and sharded passes of two or
+more folds drop it (`sharp_tpu/parallel/sharded.py:31-37`).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
-from typing import List, Optional, Sequence
+import contextlib
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from sharp_tpu_torch.config import SharpConfig
-from sharp_tpu_torch.core.fold import fold_program, fold_static_args
+from sharp_tpu_torch.core.block import BlockEnsembleResult, cluster_block_ensemble
+from sharp_tpu_torch.core.fold import fold_program, fold_static_args, fold_summary
 from sharp_tpu_torch.core.large import summaries_to_host
+from sharp_tpu_torch.ops.linkage_cuda import shard_scope
 from sharp_tpu_torch.utils.timers import log
 
 _CPU_BUDGET = 8 << 30
 
 
-def memory_budget_bytes(device) -> int:
-    """Memory for one group's working set: 80% of the card's free memory
-    (`torch.cuda.mem_get_info`) for a CUDA device, 8 GiB otherwise."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(dev)
-        return int(0.8 * free)
-    return _CPU_BUDGET
+def memory_budget_bytes(devices) -> int:
+    """Memory for one group's working set: 80% of a card's free memory
+    (`torch.cuda.mem_get_info`) divided among the shards on that card and
+    the processes that share it (`multihost.processes_per_card`), the least
+    over the cards; 8 GiB on the CPU. `devices`: one device, or the shards'
+    devices (a card listed twice holds two working sets)."""
+    devs = [torch.device(d) for d in (devices if isinstance(devices, (list, tuple)) else [devices])]
+    cards = [torch.device("cuda", torch.cuda.current_device() if d.index is None else d.index)
+             for d in devs if d.type == "cuda"]
+    if not cards:
+        return _CPU_BUDGET
+    from sharp_tpu_torch.parallel.multihost import processes_per_card
+
+    procs = processes_per_card()
+    return min(int(0.8 * torch.cuda.mem_get_info(c)[0]) // (cards.count(c) * procs) for c in set(cards))
 
 
 def auto_group(
@@ -54,6 +77,7 @@ def auto_group(
     device plus the host-staged copy (3 x block_pad x genes float32); with
     the sparse feed, the fold densified on the device with log2 applied
     and the scatter's working set (2 x block_pad x genes float32).
+    `device` as in `memory_budget_bytes`; K the members one device holds.
     """
     dense_copies = 2 if sparse else 3
     fold_bytes = dense_copies * block_pad * genes * 4 + 5 * K * block_pad * block_pad * 4
@@ -114,6 +138,41 @@ def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype):
             yield gsizes, Xg, False
 
 
+def _fold_groups(
+    X, sizes, offsets, block_pad, R_all, cfg, logf, dev, group, rows, wire_dtype, indN,
+    ens: Optional[Callable] = None,
+) -> List[dict]:
+    """The summaries of the folds `sizes` (fold t starting at cell
+    offsets[t] of X, or of `rows`), `group` folds per call on dev. `ens`
+    replaces the fold program of a group by the ensemble split."""
+    from sharp_tpu_torch.io.sparse import SparseBlock
+
+    if isinstance(X, SparseBlock):
+        feed = _sparse_feed(X, sizes, offsets, group, block_pad, logf, dev, wire_dtype)
+    else:
+        feed = _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev)
+    static = fold_static_args(cfg)
+    results: List[dict] = []
+    for gsizes, Xg, eff_logf in feed:
+        masks = (torch.arange(block_pad)[None, :] < torch.tensor(gsizes)[:, None]).to(dev)
+        if ens is None:
+            out = fold_program(Xg, masks, gsizes, R_all, eff_logf, indN, **static)
+        else:
+            out = ens(Xg, masks, gsizes, eff_logf, indN)
+        del Xg
+        results.extend(summaries_to_host(out, gsizes, cfg.forview))
+    return results
+
+
+def _check_feed(X, rows):
+    from sharp_tpu_torch.io.sparse import SparseBlock
+
+    sparse = isinstance(X, SparseBlock)
+    if sparse and rows is not None:
+        raise ValueError("a SparseBlock is processed in its own cell order (rows=None)")
+    return sparse, None if sparse else (np.arange(X.shape[0]) if rows is None else np.asarray(rows))
+
+
 def process_folds_grouped(
     X,                           # (n, genes) cells, or a SparseBlock
     sizes: Sequence[int],        # fold sizes
@@ -134,32 +193,173 @@ def process_folds_grouped(
     order). `group=None` sizes the group from the memory budget
     (`auto_group`). `wire_dtype` is the sparse feed's value type.
     """
-    from sharp_tpu_torch.io.sparse import SparseBlock
-
     dev = torch.device(device)
     T = len(sizes)
-    genes = X.shape[1]
-    sparse = isinstance(X, SparseBlock)
-    static = fold_static_args(cfg)
+    sparse, rows = _check_feed(X, rows)
     if group is None:
-        group = auto_group(block_pad, genes, cfg.ensize_K, dev, sparse=sparse)
+        group = auto_group(block_pad, X.shape[1], cfg.ensize_K, dev, sparse=sparse)
         log(f"fold group auto-sized to {group}")
-    group = max(1, min(group, T))
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
-    if sparse:
-        if rows is not None:
-            raise ValueError("a SparseBlock is processed in its own cell order (rows=None)")
-        feed = _sparse_feed(X, sizes, offsets, group, block_pad, logf, dev, wire_dtype)
-    else:
-        rows = np.arange(X.shape[0]) if rows is None else np.asarray(rows)
-        feed = _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev)
+    indN = cfg.indN_cluster if T == 1 else None
+    return _fold_groups(X, list(sizes), offsets, block_pad, R_all, cfg, logf, dev,
+                        max(1, min(group, T)), rows, wire_dtype, indN)
 
-    results: List[dict] = []
-    for gsizes, Xg, eff_logf in feed:
-        masks = torch.arange(block_pad)[None, :] < torch.tensor(gsizes)[:, None]
-        out = fold_program(
-            Xg, masks.to(dev), gsizes, R_all, eff_logf, cfg.indN_cluster, **static,
+
+@contextlib.contextmanager
+def _on(dev: torch.device, stream):
+    """Run on dev: on a card, make it the thread's device and `stream` its
+    current stream."""
+    if dev.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
+        yield
+
+
+def _ens_program(d, devs, streams, R_locals, pool, static, K_local):
+    """The fold program of a group with the K members split over the ens
+    shards devs[e] (members [e*K_local, (e+1)*K_local), against their
+    columns R_locals[e] of the RP matrices), each on its own thread and
+    stream; the members gathered in order onto devs[0], where wMetaC runs.
+    The ensemble-mean projection is the mean of the shards' means, as the
+    JAX package's `pmean` over "ens" computes it. `d` is the data shard,
+    for the launch counts."""
+    blk_keys = ("minN", "ncand", "nc_pad", "sil_thre", "height_Ntimes", "linkage_backend", "hmethod")
+    blk_static = {k: static[k] for k in blk_keys}
+    sum_static = {k: v for k, v in static.items() if k != "sil_thre"}
+    home = devs[0]
+
+    def run(Xg, masks, gsizes, logf, indN):
+        home_stream = torch.cuda.current_stream(home) if home.type == "cuda" else None
+
+        def shard(e):
+            dev = devs[e]
+            with _on(dev, streams[e]), shard_scope((d, e)):
+                if home_stream is not None and dev.type == "cuda":
+                    torch.cuda.current_stream().wait_stream(home_stream)
+                blk = cluster_block_ensemble(
+                    Xg.to(dev), masks.to(dev), gsizes, R_locals[e], static["maxN"], logf,
+                    K=K_local, indN_cluster=indN, **blk_static,
+                )
+                if dev.type == "cuda":
+                    torch.cuda.current_stream().synchronize()
+                    for t in blk:
+                        if t.device == home:
+                            t.record_stream(home_stream)
+                return blk
+
+        parts = list(pool.map(shard, range(len(devs))))
+        blk = BlockEnsembleResult(
+            labels=torch.cat([b.labels.to(home) for b in parts], dim=2),
+            k_per=torch.cat([b.k_per.to(home) for b in parts], dim=1),
+            maxsil=torch.cat([b.maxsil.to(home) for b in parts], dim=1),
+            mean_proj=torch.stack([b.mean_proj.to(home) for b in parts]).mean(dim=0),
         )
-        del Xg
-        results.extend(summaries_to_host(out, gsizes, cfg.forview))
-    return results
+        return fold_summary(blk, masks, gsizes, **sum_static)
+
+    return run
+
+
+def process_folds_sharded(
+    X,                           # (n, genes) cells, or a SparseBlock
+    sizes: Sequence[int],        # fold sizes
+    block_pad: int,
+    R_all: torch.Tensor,         # (genes, K*p), member-major
+    cfg: SharpConfig,
+    logf: bool,
+    mesh,
+    rows: Optional[np.ndarray] = None,
+    wire_dtype: str = "float32",
+    group: Optional[int] = None,
+) -> List[dict]:
+    """The fold pass over `mesh` (`parallel/mesh.Mesh`): per-fold host
+    summaries in fold order, the same as `process_folds_grouped`'s.
+
+    Data shard d runs folds `block_slice(T, d, n_data)` (a contiguous slice)
+    through the grouped loop on mesh.devices[d][0], with the dense feed over
+    `rows` or the sparse feed; with an "ens" axis its members are split
+    over mesh.devices[d]. R_all is copied to each device once (its column
+    slice, with an "ens" axis). `group=None` sizes each shard's group from
+    its share of the memory budget. Like the JAX package's, this pass drops
+    `indN_cluster`; `process_folds` sends a call of one fold to the grouped
+    loop, which keeps it.
+    """
+    from sharp_tpu_torch.parallel.multihost import block_slice
+
+    T = len(sizes)
+    n_data, n_ens = mesh.shape["data"], mesh.shape["ens"]
+    K = cfg.ensize_K
+    if K % n_ens:
+        raise ValueError(f"ensize_K={K} must divide over ens={n_ens}")
+    K_local = K // n_ens
+    p = R_all.shape[1] // K
+    sparse, rows = _check_feed(X, rows)
+    flat = mesh.flat()
+    if any(d.type == "cuda" for d in flat):
+        from sharp_tpu_torch.ops._build import load_kernels
+
+        load_kernels()   # built once, before the shard threads start
+    if group is None:
+        group = auto_group(block_pad, X.shape[1], K_local, flat, sparse=sparse)
+        log(f"fold group auto-sized to {group} per shard")
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    static = fold_static_args(cfg)
+
+    copies = {}   # each column slice once per device
+
+    def R_on(dev, e):
+        # member-major columns: ens shard e's members are one contiguous slice
+        lo, hi = e * K_local * p, (e + 1) * K_local * p
+        if (dev, lo) not in copies:
+            copies[dev, lo] = R_all[:, lo:hi].contiguous().to(dev)
+        return copies[dev, lo]
+
+    streams = [
+        [torch.cuda.Stream(device=d) if d.type == "cuda" else None for d in row] for row in mesh.devices
+    ]
+    R_locals = [[R_on(d, e) for e, d in enumerate(row)] for row in mesh.devices]
+    for d in set(flat):   # the copies finish before the shards' streams read them
+        if d.type == "cuda":
+            torch.cuda.current_stream(d).synchronize()
+
+    def data_shard(d):
+        folds = block_slice(T, d, n_data)
+        if not folds:
+            return []
+        lo, hi = folds[0], folds[-1] + 1
+        devs = mesh.devices[d]
+        with contextlib.ExitStack() as stack:
+            ens = None
+            if n_ens > 1:
+                pool = stack.enter_context(concurrent.futures.ThreadPoolExecutor(n_ens))
+                ens = _ens_program(d, devs, streams[d], R_locals[d], pool, static, K_local)
+            stack.enter_context(_on(devs[0], streams[d][0]))
+            stack.enter_context(shard_scope((d, 0)))
+            out = _fold_groups(
+                X, list(sizes[lo:hi]), offsets[lo:hi + 1], block_pad, R_locals[d][0], cfg, logf,
+                devs[0], max(1, min(group, hi - lo)), rows, wire_dtype, None, ens=ens,
+            )
+            if devs[0].type == "cuda":
+                torch.cuda.current_stream().synchronize()
+            return out
+
+    with concurrent.futures.ThreadPoolExecutor(n_data) as pool:
+        parts = list(pool.map(data_shard, range(n_data)))
+    log(f"sharded fold pass: {T} folds over {n_data} data shards"
+        + (f" x {n_ens} ens shards" if n_ens > 1 else ""))
+    return [fr for part in parts for fr in part]
+
+
+def process_folds(
+    X, sizes: Sequence[int], block_pad: int, R_all: torch.Tensor, cfg: SharpConfig, logf: bool, device,
+    mesh=None, rows: Optional[np.ndarray] = None, group: Optional[int] = None, wire_dtype: str = "float32",
+) -> List[dict]:
+    """The fold pass of the large tier and of each streamed block: over
+    `mesh` for two or more folds (`process_folds_sharded`), else the grouped
+    loop on `device` (`process_folds_grouped`), as the JAX package's
+    `sharp_large` and `_fold_pass` choose."""
+    if mesh is not None and len(sizes) > 1:
+        return process_folds_sharded(X, sizes, block_pad, R_all, cfg, logf, mesh, rows=rows,
+                                     wire_dtype=wire_dtype, group=group)
+    return process_folds_grouped(X, sizes, block_pad, R_all, cfg, logf, device, group=group, rows=rows,
+                                 wire_dtype=wire_dtype)

@@ -1,4 +1,4 @@
-"""Out-of-core / blocked clustering: the SHARP_unlimited family, on one device.
+"""Out-of-core / blocked clustering: the SHARP_unlimited family.
 
 Counterpart of `sharp_tpu/parallel/streaming.py`, mirroring
 R/SHARP_unlimited.R:29-242 and the streaming variant
@@ -12,8 +12,11 @@ Beyond the reference: the next block loads on a worker thread while the
 device clusters the current one; SBLK blocks go to the device as CSR
 triplets and are densified there (`io/sparse.py`); and each finished block
 persists its summary (labels and cluster centroids) in a manifest, so a
-killed run resumes at the last finished block. Several processes
-(`multihost`) and several devices (`n_devices > 1`) are not ported yet.
+killed run resumes at the last finished block. With `n_devices > 1` a
+block's folds run over a mesh of devices (`parallel/sharded.py`); with
+`multihost=True` several processes take disjoint slices of the blocks and
+meet once, at the all-gather of the block summaries
+(`parallel/multihost.py`).
 """
 
 from __future__ import annotations
@@ -36,9 +39,6 @@ from sharp_tpu_torch.types import SharpResult
 from sharp_tpu_torch.utils.prng import resolve_seed, view_generator
 from sharp_tpu_torch.utils.timers import StageTimer, log
 
-_NOT_PORTED = "(ROADMAP.md, Queue 1 item 9, 'parallel/{mesh,sharded,multihost}.py')"
-
-
 def _config_fingerprint(cfg: SharpConfig, wire_dtype: str = "float32") -> str:
     """The manifest key of a run's configuration. forview is part of it (a
     forview=False manifest lacks the x0/viE planes a forview=True resume
@@ -55,19 +55,19 @@ def _config_fingerprint(cfg: SharpConfig, wire_dtype: str = "float32") -> str:
     return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
 
-def _fold_pass(Xb, cfg: SharpConfig, R_all, logf: bool, device,
+def _fold_pass(Xb, cfg: SharpConfig, R_all, logf: bool, device, mesh=None,
                group: Optional[int] = None, wire_dtype: str = "float32"):
-    """One block's fold pass on one device -> list of per-fold summaries.
-    Xb is a dense (cells, genes) array or a SparseBlock."""
+    """One block's fold pass -> list of per-fold summaries. Xb is a dense
+    (cells, genes) array or a SparseBlock. With a mesh, a block of two or
+    more folds fans its folds out over the mesh (the JAX package's
+    `_fold_pass`, :72-87; `parallel/sharded.process_folds`)."""
     from sharp_tpu_torch.io.sparse import SparseBlock
-    from sharp_tpu_torch.parallel.sharded import process_folds_grouped
+    from sharp_tpu_torch.parallel.sharded import process_folds
 
     sizes = fold_sizes(Xb.shape[0], cfg.partition_ncells)
-    block_pad = pad_dim(max(sizes))
     X = Xb if isinstance(Xb, SparseBlock) else np.asarray(Xb, np.float32)
-    return process_folds_grouped(
-        X, sizes, block_pad, R_all, cfg, logf, device, group=group, wire_dtype=wire_dtype,
-    )
+    return process_folds(X, sizes, pad_dim(max(sizes)), R_all, cfg, logf, device, mesh, group=group,
+                         wire_dtype=wire_dtype)
 
 
 def _block_summary(fres):
@@ -106,6 +106,33 @@ def _block_view_features(frs: List[dict], R_view) -> np.ndarray:
     """Per-cell viE of one block (fold order), view-projected if R_view."""
     viE = np.concatenate([np.asarray(fr["mean_proj"], np.float32) for fr in frs], axis=0)
     return viE @ R_view if R_view is not None else viE
+
+
+def _gather_summaries(block_results, cfg: SharpConfig, n_blocks: int, pcount: int):
+    """Every process's block summaries, in global block order: each
+    process's (centroids, counts) padded to a budget that covers the most
+    clusters a block can have (maxN after the smetac_range widening at >=
+    1e6 cells, R/sMetaC.R:103-119), one all-gather, and the padding cut off
+    (a cluster has at least one cell)."""
+    from sharp_tpu_torch.parallel.multihost import allgather_summaries, block_slice, pad_block_summary
+
+    p = cfg.reduced_ndim
+    _, eff_maxN = smetac_range(cfg.n_cells, cfg.minN_cluster, cfg.maxN_cluster, 1 << 30)
+    bud = ((eff_maxN + 9) // 8) * 8
+    max_local = (n_blocks + pcount - 1) // pcount
+    payload = np.zeros((max_local, bud, p + 1), np.float32)
+    for bi, (_, cents, counts, _x0, _v) in enumerate(block_results):
+        cp, cc = pad_block_summary(cents, counts, bud)
+        payload[bi, :, :p] = cp
+        payload[bi, :, p] = cc
+    gathered = allgather_summaries(payload, pcount).reshape(pcount, max_local, bud, p + 1)
+    summaries = []
+    for h in range(pcount):
+        for bi in range(len(block_slice(n_blocks, h, pcount))):
+            blk = gathered[h, bi]
+            C = int((blk[:, p] > 0).sum())
+            summaries.append((blk[:C, :p], blk[:C, p]))
+    return summaries
 
 
 def global_block_fuse(summaries, cfg: SharpConfig, device="cpu"):
@@ -197,14 +224,22 @@ def sharp_unlimited(
     identical to the host densify (`False`); `wire_dtype="bfloat16"` also
     rounds the triplet values to bf16, a lossy opt-in. `group` bounds the
     folds per fold-program call (default: from free device memory,
-    `parallel/sharded.auto_group`). The other knobs are those of `sharp`.
-    `multihost=True` and `n_devices > 1` raise `NotImplementedError`.
+    `parallel/sharded.auto_group`). The other knobs are those of `sharp`;
+    `n_devices > 1` runs each block's folds over a mesh of devices.
+
+    With `multihost=True`, each process of a `torch.distributed` group
+    (torchrun's variables, `parallel/multihost.distributed_init`; one
+    process without them) streams a disjoint contiguous slice of the
+    blocks; one all-gather of the padded block summaries precedes the
+    global sMetaC, which every process computes identically. The returned
+    `pred_clusters` covers this process's blocks, in block order; the
+    size-ordered relabelling comes from the global summary counts. On a
+    card, `device="cuda"` is card LOCAL_RANK % device_count(). Processes
+    that share a card divide its free memory among them.
     """
     from sharp_tpu_torch.api import resolve_device
 
     dev = resolve_device(device)
-    if multihost:
-        raise NotImplementedError(f"multihost=True: several processes are not ported yet {_NOT_PORTED}")
     timer = StageTimer()
 
     # --- resolve input form ---------------------------------------------
@@ -246,12 +281,26 @@ def sharp_unlimited(
         n_cells = n_cells or tot
         n_genes = n_genes or gb
 
+    # the process group is joined before any device work, and the block
+    # slice resolved first (the JAX package's order, :302-324)
+    if multihost:
+        from sharp_tpu_torch.parallel.multihost import barrier, block_slice, distributed_init, local_rank
+
+        pidx, pcount = distributed_init()
+        my_blocks = block_slice(n_blocks, pidx, pcount)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", local_rank() % torch.cuda.device_count())
+        log(f"multihost: process {pidx}/{pcount} on {dev} handles blocks {my_blocks}")
+        if pcount > 1:
+            barrier(pcount)
+    else:
+        pidx, pcount = 0, 1
+        my_blocks = list(range(n_blocks))
+    lockstep = multihost and pcount > 1
+    max_local = (n_blocks + pcount - 1) // pcount
+
     knobs.setdefault("forview", False)
     cfg = resolve_config(n_cells, n_genes, **knobs)
-    if cfg.n_devices > 1:
-        raise NotImplementedError(
-            f"n_devices={cfg.n_devices}: folds over several cards are not ported yet {_NOT_PORTED}"
-        )
     # blocks are preprocessed upstream in the reference path (SHARP called
     # with prep=FALSE, logflag=FALSE -> log employed)
     logf = True if cfg.log_transform is None else bool(cfg.log_transform)
@@ -288,6 +337,9 @@ def sharp_unlimited(
         return not (resume and mp and os.path.exists(mp))
 
     # --- per-block pass with prefetch + manifest resume ------------------
+    from sharp_tpu_torch.parallel.mesh import resolve_mesh
+
+    mesh = resolve_mesh(cfg, dev)
     R_view = _view_rp_matrix(cfg, rN_seed, dev) if cfg.forview else None
     results_by_block = {}
     pending = []  # (block index, fold summaries) awaiting their fuse
@@ -310,32 +362,45 @@ def sharp_unlimited(
     with timer.stage("block_pass"):
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             future, prefetched_for = None, None
-            for i in range(n_blocks):
-                if not want(i):
-                    z = np.load(manifest_path(i))
-                    results_by_block[i] = (
-                        z["labels"], z["cents"], z["counts"],
-                        z["x0"] if "x0" in z.files else None,
-                        z["viE"] if "viE" in z.files else None,
+            for i in my_blocks:
+                try:
+                    if not want(i):
+                        z = np.load(manifest_path(i))
+                        results_by_block[i] = (
+                            z["labels"], z["cents"], z["counts"],
+                            z["x0"] if "x0" in z.files else None,
+                            z["viE"] if "viE" in z.files else None,
+                        )
+                        log(f"block {i}: resumed from manifest")
+                        continue
+                    Xb = future.result() if prefetched_for == i else load_block(i)
+                    # prefetch the next block still to run
+                    nxt = next((j for j in my_blocks if j > i and want(j)), None)
+                    future = pool.submit(load_block, nxt) if nxt is not None else None
+                    prefetched_for = nxt
+                    pending.append(
+                        (i, _fold_pass(Xb, cfg, R_all, logf, dev, mesh, group=group, wire_dtype=wire_dtype))
                     )
-                    log(f"block {i}: resumed from manifest")
-                    continue
-                Xb = future.result() if prefetched_for == i else load_block(i)
-                # prefetch the next block still to run
-                nxt = next((j for j in range(i + 1, n_blocks) if want(j)), None)
-                future = pool.submit(load_block, nxt) if nxt is not None else None
-                prefetched_for = nxt
-                pending.append(
-                    (i, _fold_pass(Xb, cfg, R_all, logf, dev, group=group, wire_dtype=wire_dtype))
-                )
-                del Xb
-                if len(pending) >= fuse_batch:
-                    fuse_pending()
+                    del Xb
+                    if len(pending) >= fuse_batch:
+                        fuse_pending()
+                finally:
+                    if lockstep:
+                        # once per block: no process reaches the summary
+                        # all-gather more than one block ahead
+                        barrier(pcount)
             fuse_pending()
-    block_results = [results_by_block[i] for i in range(n_blocks)]
+        if lockstep:
+            # a process with one block fewer runs the same number of barriers
+            for _ in range(max_local - len(my_blocks)):
+                barrier(pcount)
+    block_results = [results_by_block[i] for i in my_blocks]
 
     with timer.stage("summary_gather"):
-        summaries = [(c, n) for _, c, n, _x0, _v in block_results]
+        if lockstep:
+            summaries = _gather_summaries(block_results, cfg, n_blocks, pcount)
+        else:
+            summaries = [(c, n) for _, c, n, _x0, _v in block_results]
 
     # --- global sMetaC over block-cluster centroids ----------------------
     with timer.stage("global_smetac"):
@@ -351,7 +416,7 @@ def sharp_unlimited(
         if any(x0c is not None for _, _, _, x0c, _ in block_results):
             x0_all = np.zeros((sum(len(l) for l, *_ in block_results), n_glob), np.float32)
         row0 = 0
-        for bi, (labels, _, _, x0c, viE_b) in enumerate(block_results):
+        for bi, (labels, _, _, x0c, viE_b) in zip(my_blocks, block_results):
             parts.append(remap[tf[offsets[bi] + labels]])
             if x0c is not None:
                 # the block's vote columns onto their global size-ordered

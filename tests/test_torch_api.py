@@ -1,6 +1,6 @@
 """The port's entry points on the CPU: no import of JAX or of the JAX
 package, explicit devices, both tiers and the streaming path, and loud
-refusals for what is not ported yet."""
+refusals of what cannot run."""
 
 import os
 import shutil
@@ -28,7 +28,8 @@ def _python(code, cwd=REPO, timeout=300):
 
 
 def test_port_runs_without_importing_jax():
-    """Both tiers of sharp(), sharp_unlimited() over SBLK files, the
+    """Both tiers of sharp() (the large one also over a mesh of four
+    shards), sharp_unlimited() over SBLK files, the
     analysis functions and the CLI on the CPU load no module of JAX, none of
     the JAX package and, without a plot, no matplotlib (tests/conftest.py
     imports jax, so this runs in a fresh interpreter). Importing the package
@@ -45,6 +46,9 @@ def test_port_runs_without_importing_jax():
         "res = sharp_tpu_torch.sharp(X, rN_seed=3, ensize_K=3, device='cpu')\n"
         "big = sharp_tpu_torch.sharp(X, rN_seed=3, ensize_K=3, base_ncells=100,\n"
         "                            partition_ncells=60, device='cpu')\n"
+        "mesh = sharp_tpu_torch.sharp(X, rN_seed=3, ensize_K=4, base_ncells=100, partition_ncells=60,\n"
+        "                             n_devices=4, ensemble_axis=2, device='cpu')\n"
+        "assert len(mesh.pred_clusters) == 120 and mesh.per_member_k.shape == (2, 4)\n"
         "d = tempfile.mkdtemp()\n"
         "save_blocks(d, [X[:70], X[70:]], fmt='sblk')\n"
         "unl = sharp_tpu_torch.sharp_unlimited(d, rN_seed=3, ensize_K=3, partition_ncells=40,\n"
@@ -148,10 +152,17 @@ def test_ari_and_labels_match_the_jax_package(seed):
 
 
 def test_large_tier_raises():
-    """The large tier runs; folds over several cards are what still raises."""
+    """Nothing raises for several devices any more: the large tier's folds
+    over two shards on the CPU give the one-device labels, and an
+    ensemble_axis that does not divide ensize_K is refused."""
     X, _ = make_tpm_like(n_cells=150, n_genes=100, n_types=3, seed=0)
-    with pytest.raises(NotImplementedError, match="several cards"):
-        sharp_tpu_torch.sharp(X, base_ncells=100, n_devices=2, device="cpu")
+    kw = dict(rN_seed=1, ensize_K=2, base_ncells=100, partition_ncells=60, device="cpu")
+    one = sharp_tpu_torch.sharp(X, **kw)
+    two = sharp_tpu_torch.sharp(X, n_devices=2, **kw)
+    np.testing.assert_array_equal(one.pred_clusters, two.pred_clusters)
+    np.testing.assert_array_equal(one.per_member_k, two.per_member_k)
+    with pytest.raises(ValueError, match="ensemble_axis"):
+        sharp_tpu_torch.sharp(X, n_devices=2, ensemble_axis=2, **dict(kw, ensize_K=3))
 
 
 def test_small_tier_above_1024_raises(monkeypatch):

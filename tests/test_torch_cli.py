@@ -118,10 +118,11 @@ def test_cli_unlimited_forview_embed(tmp_path):
         cli(["embed", bare, "--out", str(tmp_path / "e2.npz"), *CPU])
 
 
-def test_cli_error_paths(tmp_path, dataset):
+def test_cli_error_paths(tmp_path, dataset, monkeypatch):
     """Bad invocations fail loudly: argparse exit 2, missing files raise, a
-    card requested where there is none raises, and what is not ported
-    (several cards, several processes) raises NotImplementedError."""
+    card requested where there is none raises. Several shards and several
+    processes run: `--n-devices 2` clusters with the one-device labels, and
+    `--multihost` without torchrun's variables runs as one process."""
     d, xpath, rpath, X, y = dataset
     with pytest.raises(SystemExit) as e:
         cli(["cluster"])
@@ -130,10 +131,22 @@ def test_cli_error_paths(tmp_path, dataset):
         cli(["cluster", str(tmp_path / "nope.npz"), "--out", str(tmp_path / "o.npz"), *CPU])
     with pytest.raises(SystemExit):
         cli([])
-    with pytest.raises(NotImplementedError, match="several cards"):
-        cli(["cluster", xpath, "--out", str(tmp_path / "o.npz"), "--n-devices", "2", *CPU])
-    with pytest.raises(NotImplementedError, match="multihost"):
-        cli(["unlimited", str(tmp_path), "--out", str(tmp_path / "o.npz"), "--multihost", *CPU])
+    large = ["--rN-seed", "3", "--ensize-K", "3", "--base-ncells", "100", "--partition-ncells", "60", *CPU]
+    runs = {}
+    for name, extra in (("one", []), ("two", ["--n-devices", "2"])):
+        assert cli(["cluster", xpath, "--out", str(tmp_path / f"{name}.npz"), *large, *extra]) == 0
+        runs[name] = np.load(tmp_path / f"{name}.npz")["pred_clusters"]
+    np.testing.assert_array_equal(runs["one"], runs["two"])
+    from sharp_tpu_torch.io.blocks import save_blocks
+
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    blocks = str(tmp_path / "blocks")
+    save_blocks(blocks, [X[:120], X[120:]], fmt="sblk")
+    for name, extra in (("u_one", []), ("u_mh", ["--multihost"])):
+        assert cli(["unlimited", blocks, "--out", str(tmp_path / f"{name}.npz"), "--no-resume", *large, *extra]) == 0
+        runs[name] = np.load(tmp_path / f"{name}.npz")["pred_clusters"]
+    np.testing.assert_array_equal(runs["u_one"], runs["u_mh"])
     if not torch.cuda.is_available():
         for argv in (["cluster", xpath], ["markers", xpath, rpath], ["embed", rpath]):
             with pytest.raises(RuntimeError, match="cuda"):

@@ -106,12 +106,55 @@ def test_ward_serial_bf16_at_2048(dev):
 @pytest.mark.parametrize("n", [5120, 8192])
 def test_ward_serial_bf16_up_to_its_largest_n(dev, n):
     """The small tier's largest padded size under the default base_ncells
-    (5120) and the wrapper's limit (8192, the most shared memory the
-    global tier's row state may take)."""
-    from sharp_tpu_torch.ops.linkage_cuda import WARD_SERIAL_MAX_N
+    (5120) and the largest n whose row state sits in shared memory (8192,
+    225 KB)."""
+    from sharp_tpu_torch.ops.linkage_cuda import WARD_STATE_SMEM_MAX_N
 
-    assert n <= WARD_SERIAL_MAX_N
+    assert n <= WARD_STATE_SMEM_MAX_N
     _hold_serial(_distances(1, n, n - 40, 16, seed=n, dev=dev), torch.bfloat16)
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+def test_ward_serial_above_the_shared_state_limit(dev, store):
+    """n 8320: the row state in the global scratch (no size cap any more);
+    merges and heights identical to the plain loop."""
+    from sharp_tpu_torch.ops.linkage_cuda import WARD_STATE_SMEM_MAX_N
+
+    n = 8320
+    assert n > WARD_STATE_SMEM_MAX_N
+    _hold_serial(_distances(1, n, n - 40, 16, seed=n, dev=dev), store)
+
+
+def test_gethclust_on_card_above_8192(dev, monkeypatch):
+    """gethclust at 8,300 points (n_pad 8704) answers on the card, as in the
+    JAX package: its linkage, serial Ward with the row state in the global
+    scratch, identical to the plain loop on the same padded matrix, and the
+    returned heights its first n - 1."""
+    import sharp_tpu_torch
+    from sharp_tpu_torch.ops import select
+    from sharp_tpu_torch.ops.linkage import ward_linkage
+
+    seen = {}
+    real = select.linkage
+
+    def spy(D, backend, method):
+        out = real(D, backend, method)
+        seen.update(D=D, out=out)
+        return out
+
+    monkeypatch.setattr(select, "linkage", spy)
+    n = 8300
+    rng = np.random.default_rng(n)
+    y = rng.integers(0, 6, n)
+    X = (3.0 * np.eye(6)[y] @ rng.normal(size=(6, 20)) + 0.5 * rng.normal(size=(n, 20))).astype(np.float32)
+    d = (1.0 - np.corrcoef(X)).astype(np.float32)
+    got = sharp_tpu_torch.gethclust(d, X, device=dev)
+    assert seen["D"].shape == (8704, 8704) and seen["D"].is_cuda
+    ref = ward_linkage(seen["D"])
+    assert torch.equal(seen["out"].merges, ref.merges)
+    assert torch.equal(seen["out"].heights, ref.heights)
+    np.testing.assert_array_equal(got["height"], ref.heights.cpu().numpy()[: n - 1])
+    assert got["f"].shape == (n,) and 2 <= got["f"].max() <= 40
 
 
 @pytest.mark.parametrize("ncand", [1, 13, 39])
@@ -392,10 +435,8 @@ def test_wrappers_refuse_bad_input(dev):
         ward_linkage_serial(torch.zeros((8, 8), device=dev).T)  # not contiguous
     with pytest.raises(TypeError):
         ward_linkage_serial(torch.zeros((8, 8), device=dev), store_dtype=torch.float16)
-    from sharp_tpu_torch.ops.linkage_cuda import WARD_SERIAL_MAX_N
-
     with pytest.raises(ValueError):
-        ward_linkage_serial(torch.empty((1, WARD_SERIAL_MAX_N + 8, WARD_SERIAL_MAX_N + 8), device=dev))
+        ward_linkage_serial(torch.zeros((1, 1, 1), device=dev))   # n < 2
     with pytest.raises(TypeError):
         cutree_snapshots_kernel(torch.zeros((1, 3, 2), dtype=torch.int64, device=dev), 4, minN=2, ncand=2)
 

@@ -238,3 +238,30 @@ def test_sharp_large_tier_own_draws():
     assert np.array_equal(u, np.arange(1, len(u) + 1))
     with pytest.raises(ValueError, match="shuffle_perm"):
         sharp_tpu_torch.sharp(X, shuffle_perm=torch.arange(n - 1), **kw)
+
+
+@pytest.mark.parametrize("n,partition_ncells", [(900, 250), (450, 500)])
+def test_indN_cluster_holds_for_one_fold_only_as_in_jax(n, partition_ncells):
+    """indN_cluster fixes every member's cluster count in a call of one fold
+    (450 cells in folds of 500: T = 1) and is dropped by the grouped pass
+    of two or more (900 in folds of 250: T = 4), as the JAX package does:
+    member counts and labels identical to `sharp_tpu.sharp` with the same
+    draws."""
+    genes = 300
+    X, _ = make_tpm_like(n_cells=n, n_genes=genes, n_types=5, seed=3)
+    kw = dict(rN_seed=7, base_ncells=400, partition_ncells=partition_ncells, ensize_K=4, prep=False,
+              indN_cluster=6)
+    cfg = resolve_config(n, genes, **kw)
+    d = _jax_draws(n, genes, cfg.ensize_K, cfg.reduced_ndim, kw["rN_seed"])
+    ref = sharp_tpu.sharp(X, rM=d["R"], **kw)
+    got = sharp_tpu_torch.sharp(
+        X, rM=d["R"], device="cpu",
+        testlog_probe=carry.testlog_probe_from_jax(d["testlog_perm"], d["R_probe"], n, genes, cfg.reduced_ndim),
+        shuffle_perm=carry.shuffle_perm_from_jax(d["shuffle_perm"], n),
+        **kw,
+    )
+    T = len(tlarge.fold_sizes(n, partition_ncells))
+    assert got.per_member_k.shape == (T, 4)
+    np.testing.assert_array_equal(got.per_member_k, ref.per_member_k)
+    np.testing.assert_array_equal(got.pred_clusters, ref.pred_clusters)
+    assert (got.per_member_k == 6).all() == (T == 1)

@@ -27,6 +27,7 @@ from sharp_tpu_torch.io import native, sparse
 from sharp_tpu_torch.io.blocks import BlockStore, save_blocks
 from sharp_tpu_torch.parallel import streaming
 from tests.synth import make_tpm_like
+from tests.torch_mh_worker import shared_rp, ternary
 
 KW = dict(rN_seed=19, ensize_K=4, partition_ncells=250, base_ncells=300)
 
@@ -37,31 +38,17 @@ def blocked_data():
     return X, y, [X[:400], X[400:700], X[700:]]
 
 
-def _ternary(rng, m, p):
-    s = np.sqrt(np.float32(m))
-    u = rng.random((m, p), dtype=np.float32)
-    t = 1.0 / (2.0 * s)
-    return np.where(u < t, np.sqrt(s), np.where(u > 1.0 - t, -np.sqrt(s), 0.0)).astype(np.float32)
-
-
 @pytest.fixture
 def same_rp(monkeypatch):
-    """One numpy RP matrix for both packages' streaming modules."""
-    mats = {}
-
-    def make(K, m, p):
-        key = (K, m, p)
-        if key not in mats:
-            mats[key] = _ternary(np.random.default_rng(K * 1000 + m), m, K * p)
-        return mats[key]
-
+    """One numpy RP matrix for both packages' streaming modules (the one the
+    two-process workers use too)."""
     monkeypatch.setattr(
         jstream, "ensemble_rp_matrix",
-        lambda key, K, m, p, dtype=jnp.float32: jnp.asarray(make(K, m, p), dtype),
+        lambda key, K, m, p, dtype=jnp.float32: jnp.asarray(shared_rp(K, m, p), dtype),
     )
     monkeypatch.setattr(
         streaming, "ensemble_rp_matrix",
-        lambda seed, K, m, p, dtype=torch.float32, device="cpu": torch.from_numpy(make(K, m, p)).to(device, dtype),
+        lambda seed, K, m, p, dtype=torch.float32, device="cpu": torch.from_numpy(shared_rp(K, m, p)).to(device, dtype),
     )
 
 
@@ -308,12 +295,20 @@ def test_view_rp_threshold():
     assert streaming._block_view_features(frs, None).shape == (10, cfg.reduced_ndim)
 
 
-def test_unported_parts_raise(blocked_data):
-    X, y, blocks = blocked_data
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        sharp_unlimited(blocks, multihost=True, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        sharp_unlimited(blocks, n_devices=2, device="cpu", **KW)
+def test_unported_parts_raise(monkeypatch):
+    """Nothing raises any more: multihost=True without torchrun's variables
+    runs as one process, and n_devices=2 puts each block's two folds over two
+    shards; both give the labels of one process on one device."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    X, _ = make_tpm_like(n_cells=500, n_genes=300, n_types=4, seed=5)
+    blocks = [X[:200], X[200:350], X[350:]]
+    kw = dict(rN_seed=3, ensize_K=3, base_ncells=200, partition_ncells=128, device="cpu")
+    ref = sharp_unlimited(blocks, **kw)
+    for extra in (dict(multihost=True), dict(n_devices=2)):
+        got = sharp_unlimited(blocks, **extra, **kw)
+        np.testing.assert_array_equal(got.pred_clusters, ref.pred_clusters)
+        assert got.N_pred_cluster == ref.N_pred_cluster
 
 
 def test_auto_group_sparse_branch(monkeypatch):
@@ -340,7 +335,7 @@ def test_sparse_feed_equals_dense_feed_for_any_group():
     X, _ = make_tpm_like(n_cells=600, n_genes=300, n_types=4, seed=6)
     X[X < np.quantile(X, 0.6)] = 0.0
     cfg = resolve_config(600, 300, ensize_K=3, partition_ncells=120, rN_seed=2)
-    R = torch.from_numpy(_ternary(np.random.default_rng(0), 300, 3 * cfg.reduced_ndim))
+    R = torch.from_numpy(ternary(np.random.default_rng(0), 300, 3 * cfg.reduced_ndim))
     sizes = [120] * 5
     dense = process_folds_grouped(X, sizes, 128, R, cfg, True, "cpu", group=5)
     sb = sparse.SparseBlock.from_scipy(sp.csr_matrix(X))
