@@ -31,7 +31,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               tail and against plain rounds (round_impl="xla"), merges and
               heights identical, and both timed in turns (xla, pallas,
               pallas, xla); the cut replay at (80, 2048); serial Ward (both
-              storage types) on the wMetaC problem (1, 256). Median times from CUDA events
+              storage types) and the cut replay on the wMetaC problem (1,
+              256) and on a fold group's 16 wMetaC problems (16, 256), the
+              shape wMetaC gives them now. Median times from CUDA events
               (kernels 20 launches, plain versions 3), and each kernel's
               bound: its bytes over 3.35 TB/s or its float32 operations over
               67 TFLOP/s, whichever is larger. The cut replay's launch floor:
@@ -57,10 +59,14 @@ Phases, in order; any failure raises and the script exits non-zero:
               run also warms the card up. (b) The flagship block, 25 folds:
               ARI >= 0.9 against the planted types; every fold group's block
               linkage ran its rounds in the round kernel (3 levels) and its
-              tail in the tail kernel; wMetaC and sMetaC went through serial
-              Ward and the cut replay. Then the same block with
-              linkage_backend="rnn_bf16", and one more f32 run with the
-              parts of fold_ensemble synchronised and timed.
+              tail in the tail kernel; serial Ward took every fold's wMetaC
+              problem and sMetaC's (ops.linkage_cuda.PROBLEMS) in at most one
+              wMetaC launch per fold group and one sMetaC launch; a cut
+              replay per linkage. Then the same block with
+              linkage_backend="rnn_bf16", one more f32 run with the parts of
+              fold_ensemble synchronised and timed (the group's selection,
+              one select_cut, and its wMetaC among them), and one under
+              torch.profiler counting the call's host reads.
   6. unlimited  sharp_unlimited over SBLK files written into a temporary
               directory outside the checkout (removed at the end). (a) 3
               blocks of 2,500 x 5,000 with one injected numpy RP matrix:
@@ -70,9 +76,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               types, 2,048 nonzero genes per cell, 3.3 GB of SBLK), called as
               the bench's API path calls it after an untimed warm-up on
               block 0: ARI >= 0.95, at most 57 clusters, the round kernel 3
-              times and the tail kernel once per fold group, serial Ward at
-              least once per fold, a cut replay per linkage, no cut-replay
-              problem on the serial route; wall and stage seconds.
+              times and the tail kernel once per fold group, serial Ward on
+              every fold's wMetaC problem in at most one launch per fold
+              group (and at most one per block and one more for the fuses), a
+              cut replay per linkage, no cut-replay problem on the serial
+              route; wall and stage seconds; then, as in phase 5 (b), a run
+              with the parts timed and one counting the host reads.
   7. analysis  run after phase 5, before phase 6, on the flagship block and
               the labels, x0 and viE of phase 5 (b)'s sharp() run. (a)
               gethclust on a Pearson d of log2 expression and its features
@@ -109,19 +118,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               (ops.linkage_cuda.SHARD_LAUNCHES) the round kernel at every
               ladder level and the tail kernel once per group, a cut replay
               per linkage and, on each data shard's first device, serial Ward
-              at least once per fold. (c) Two processes of the CLI's
+              on every fold's wMetaC problem in at most one launch per fold
+              group (SHARD_PROBLEMS). (c) Two processes of the CLI's
               `unlimited <phase 6 (b)'s directory> --multihost --no-resume`
               with phase 6 (b)'s knobs (torch.distributed over gloo on a free
               localhost port), each printing its launch counts after the
               command: process 0's labels, then process 1's, equal phase 6
               (b)'s; both report its cluster count; ARI >= 0.95 with at most
               57 clusters; each process launched every kernel its two blocks'
-              folds need, as in (a) and (b).
+              folds need, as in (a) and (b), with its fuses besides.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it holds the card's name and power limit as nvidia-smi prints them,
 and the one before that the kernels' JSON record: per kernel its launches
-in the run of phase 6 (b) (and, under launches_by_path, in the flagship run
+in the run of phase 6 (b) and the problems they took (and, under
+launches_by_path, its launches in the flagship run
 of phase 5 (b), in phase 7 (a)'s gethclust calls and in phase 8 (b), the
 flagship block over two shards), its largest difference from the plain version, its time
 per call (and device_ms, the kernel alone), the plain version's, its bound
@@ -241,27 +252,30 @@ def _wmetac_like_labels(y, K, nc_pad, rng):
     return labels
 
 
-def _wmetac_problem(dev, cfg, y, n_pad, seed):
-    """The wMetaC meta problem of one block of len(y) cells padded to n_pad:
-    distances of the similarity of K member labellings of planted types y,
-    a (1, allc_pad, allc_pad) problem."""
+def _wmetac_problem(dev, cfg, ys, n_pad, seed):
+    """The wMetaC meta problems of G = len(ys) folds of len(y) cells padded
+    to n_pad: distances of the similarity of K member labellings of the
+    planted types y of each fold, a (G, allc_pad, allc_pad) problem, and
+    each problem's count of real points."""
     import torch
 
     from sharp_tpu_torch.core.pipeline import _allc_pad
     from sharp_tpu_torch.core.wmetac import cluster_similarity
     from sharp_tpu_torch.ops.select import prep_distance
 
-    n = len(y)
-    labels = np.full((n_pad, cfg.ensize_K), cfg.nc_pad - 1, np.int32)
-    labels[:n] = _wmetac_like_labels(y, cfg.ensize_K, cfg.nc_pad, np.random.default_rng(seed))
-    mask = torch.arange(n_pad, device=dev) < n
+    rng = np.random.default_rng(seed)
+    labels = np.full((len(ys), n_pad, cfg.ensize_K), cfg.nc_pad - 1, np.int32)
+    for g, y in enumerate(ys):
+        labels[g, : len(y)] = _wmetac_like_labels(y, cfg.ensize_K, cfg.nc_pad, rng)
+    n = torch.tensor([len(y) for y in ys], device=dev)
+    mask = torch.arange(n_pad, device=dev)[None, :] < n[:, None]
     allc = _allc_pad(cfg)
     sim = cluster_similarity(
         torch.from_numpy(labels).to(dev), mask, n,
         K=cfg.ensize_K, nc_pad=cfg.nc_pad, allc_pad=allc,
     )
     D, _, _ = prep_distance(sim.S, sim.comp_valid, symmetric=True)
-    return D[None].contiguous(), min(sim.total_occ, allc)
+    return D.contiguous(), torch.clamp_max(sim.total_occ, allc).tolist()
 
 
 def _nbytes(*tensors):
@@ -278,7 +292,8 @@ def _bound(nbytes, flops=0.0):
 def _hold_ward(name, D, n_real, store_name, plain_reps=PLAIN_REPS):
     """Serial Ward on D in one storage type against its plain version:
     merges and heights identical; its time, microseconds per merge, the
-    plain version's time and the bound. Returns the row and the merges."""
+    plain version's time and the bound. n_real: the problems' count of real
+    points, one for all or a list. Returns the row and the merges."""
     import torch
 
     from sharp_tpu_torch.ops.linkage import ward_linkage
@@ -317,13 +332,15 @@ def _hold_ward(name, D, n_real, store_name, plain_reps=PLAIN_REPS):
 
 def _hold_ward_and_cutree(name, D, n_real, record_rows, ncand=39, stores=("f32", "bf16")):
     """Serial Ward on D in each storage type, and the cut replay on its f32
-    merges, against their plain versions."""
+    merges, against their plain versions; n_real one count for all problems
+    or a list."""
     K = D.shape[0]
+    nr = list(n_real) if isinstance(n_real, (list, tuple)) else [n_real] * K
     row = {}
     for store_name in stores:
         row[store_name], merges = _hold_ward(name, D, n_real, store_name)
         if store_name == "f32":
-            _hold_cutree(name, merges, [n_real] * K, ncand, row=row)
+            _hold_cutree(name, merges, nr, ncand, row=row)
             print(
                 f"[kernels] cutree {name}: cut snapshots identical to the plain replay; "
                 f"{row['cutree_ms']:.3f} ms (plain {row['cutree_plain_ms']:.3f} ms)",
@@ -457,7 +474,7 @@ def phase_kernels(dev, record, Xbig, ybig):
     D, _, _ = prep_distance(proj, mask, symmetric=False)
     _hold_ward_and_cutree("ward_15x512", D.contiguous(), 479, rows)
     y = np.random.default_rng(1).integers(0, 7, 479)
-    D, n_real = _wmetac_problem(dev, cfg, y, 512, seed=0)
+    D, n_real = _wmetac_problem(dev, cfg, [y], 512, seed=0)
     _hold_ward_and_cutree(f"ward_1x{D.shape[-1]}", D, n_real, rows)
     n_pad = pad_dim(1000)
     _hold_ward_and_cutree(f"ward_1x{n_pad}", _random_problem(dev, 1, n_pad, 1000, seed=1, dim=250), 1000, rows)
@@ -578,8 +595,13 @@ def phase_kernels(dev, record, Xbig, ybig):
     _device_ms_later(floor, "device_ms", lambda: cutree_snapshots_kernel(pair, two, minN=2, ncand=39),
                      "cutree_kernel", "cutree launch floor (1, 2)")
     del D, links
-    D, n_real = _wmetac_problem(dev, big_cfg, ybig[:FOLD], pad_dim(FOLD), seed=2)
+    D, n_real = _wmetac_problem(dev, big_cfg, [ybig[:FOLD]], pad_dim(FOLD), seed=2)
     _hold_ward_and_cutree("ward_wmetac_fold", D, n_real, rows)
+    # the shape the main path gives both kernels now: one fold group's 16
+    # wMetaC meta problems in one launch
+    D, n_real = _wmetac_problem(dev, big_cfg, [ybig[g * FOLD : (g + 1) * FOLD] for g in range(GROUP)],
+                                pad_dim(FOLD), seed=2)
+    _hold_ward_and_cutree(f"ward_wmetac_{GROUP}x{D.shape[-1]}", D, n_real, rows)
     record["kernels"] = rows
     torch.cuda.empty_cache()
     return rows, tail, rounds
@@ -680,8 +702,9 @@ class _RouteLog(dict):
 
 def _run_counted(X, entry="sharp", **kw):
     """One call of the port's `sharp` (or `sharp_unlimited`) with every
-    kernel's launch count set to 0 just before it and read just after, and
-    the routes its cut-replay problems and tail lanes took."""
+    kernel's launch and problem counts set to 0 just before it and read just
+    after, and the routes its cut-replay problems and tail lanes took.
+    Returns (result, wall, launches, problems, routes)."""
     import torch
 
     import sharp_tpu_torch
@@ -691,15 +714,17 @@ def _run_counted(X, entry="sharp", **kw):
     linkage_cuda.ROUTES = log
     try:
         linkage_cuda.SHARD_LAUNCHES.clear()
-        linkage_cuda.LAUNCHES.update(dict.fromkeys(linkage_cuda.LAUNCHES, 0))
+        linkage_cuda.SHARD_PROBLEMS.clear()
+        for counter in (linkage_cuda.LAUNCHES, linkage_cuda.PROBLEMS):
+            counter.update(dict.fromkeys(counter, 0))
         t0 = time.perf_counter()
         res = getattr(sharp_tpu_torch, entry)(X, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(linkage_cuda.LAUNCHES)
+        counts, problems = dict(linkage_cuda.LAUNCHES), dict(linkage_cuda.PROBLEMS)
     finally:
         linkage_cuda.ROUTES = saved
-    return res, wall, counts, log.counts()
+    return res, wall, counts, problems, log.counts()
 
 
 def _stages(res):
@@ -723,7 +748,7 @@ def phase_slice(dev, record):
         X, y = make_tpm_like(n_cells=n, n_genes=n_genes, n_types=n_types, seed=0)
         if name == "wang_479x20000":
             sharp_tpu_torch.sharp(X, device=dev, **kw)  # warm-up: CUDA context, cuBLAS
-        res, wall, counts, routes = _run_counted(X, device=dev, **kw)
+        res, wall, counts, _, routes = _run_counted(X, device=dev, **kw)
         score = ari(y, res.pred_clusters)
         stages = _stages(res)
         print(
@@ -804,8 +829,8 @@ def _timed_parts(torch):
     """Wrap the large tier's parts in synchronised host timers: the fold
     program per group (the rest of fold_ensemble is the host staging of the
     group and its copy to the card) and, inside it, the projection, the
-    distances, the block linkage call, the cut replay, the per-member
-    selections and wMetaC."""
+    distances, the block linkage call, the cut replay, the selection of all
+    the group's members (one select_cut) and its wMetaC (one call)."""
     from sharp_tpu_torch.core import block, fold
     from sharp_tpu_torch.parallel import sharded
 
@@ -828,6 +853,44 @@ def _timed_parts(torch):
         setattr(mod, name, wrapper)
         saved.append((mod, name, real))
     return acc, saved
+
+
+def _host_reads(torch, fn):
+    """fn() under torch.profiler (host activity only): its result and the
+    reads of device values by the host it made, counted as the profiler's
+    aten::_local_scalar_dense events (the op behind .item(), int(), bool()
+    and indexing by a 0-d tensor), and its nonzero calls (a sync on the
+    card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ev = {e.key: e.count for e in prof.key_averages()}
+    return out, {"host_reads": ev.get("aten::_local_scalar_dense", 0), "nonzero": ev.get("aten::nonzero", 0)}
+
+
+def _parts_and_reads(torch, phase, name, run, wall_key):
+    """Two more calls of run() (-> a result with stages): one with the fold
+    program's parts synchronised and timed (`_timed_parts`), one under the
+    profiler counting its host reads. Returns their record."""
+    acc, saved = _timed_parts(torch)
+    try:
+        res, wall = run()
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+    fe = _stages(res)[wall_key]
+    parts = {k: dict(seconds=v, share_of_stage=v / fe) for k, v in acc.items()}
+    print(
+        f"[{phase}] {name} parts, synchronised ({wall_key} {fe:.3f} s, wall {wall:.3f} s): "
+        + ", ".join(f"{k} {v['seconds']:.3f} s ({100 * v['share_of_stage']:.1f}%)" for k, v in parts.items()),
+        flush=True,
+    )
+    (_, reads_wall), reads = _host_reads(torch, run)
+    print(f"[{phase}] {name} host reads of one call (torch.profiler): {reads}; that call's wall "
+          f"{reads_wall:.3f} s under the profiler", flush=True)
+    return dict(stage_s=fe, wall_s=wall, parts=parts, profiled_wall_s=reads_wall, **reads)
 
 
 def _large_a_input(ensize_K=None):
@@ -866,7 +929,7 @@ def phase_large(dev, record, Xbig, ybig):
     out = {}
     # (a) card vs CPU with the same draws; also the warm-up of the large tier
     X, y, draws = _large_a_input()
-    on_card, wall, counts, _ = _run_counted(X, device=dev, **draws, **SEED_KW)
+    on_card, wall, counts, _, _ = _run_counted(X, device=dev, **draws, **SEED_KW)
     t0 = time.perf_counter()
     on_cpu = sharp_tpu_torch.sharp(X, device="cpu", **draws, **SEED_KW)
     cpu_wall = time.perf_counter() - t0
@@ -894,17 +957,19 @@ def phase_large(dev, record, Xbig, ybig):
     # (b) the flagship block
     T = len(fold_sizes(len(ybig), FOLD))
     runs = {}
+    groups = math.ceil(T / GROUP)
     for backend in ("auto", "rnn_bf16"):
-        res, wall, counts, routes = _run_counted(Xbig, device=dev, linkage_backend=backend, **SEED_KW)
+        res, wall, counts, problems, routes = _run_counted(Xbig, device=dev, linkage_backend=backend, **SEED_KW)
         score = ari(ybig, res.pred_clusters)
         stages = _stages(res)
         runs[backend] = dict(
             wall_s=wall, ari=score, clusters=res.N_pred_cluster, stages=stages, launches=counts,
-            routes=routes,
+            problems=problems, routes=routes,
         )
         print(
             f"[large] flagship_50000x27998 linkage_backend={backend}: {res.N_pred_cluster} clusters, "
-            f"ARI {score:.4f}, {T} folds, wall {wall:.3f} s, launches {counts}, routes {routes}",
+            f"ARI {score:.4f}, {T} folds, wall {wall:.3f} s, launches {counts}, problems {problems}, "
+            f"routes {routes}",
             flush=True,
         )
         print(f"[large] flagship_50000x27998 {backend} stages (s): {json.dumps(stages)}", flush=True)
@@ -912,34 +977,28 @@ def phase_large(dev, record, Xbig, ybig):
             main_counts, main_res = counts, res
             if score < 0.9:
                 raise AssertionError(f"flagship: ARI {score:.4f} < 0.9")
-            if counts["rnn_tail"] < math.ceil(T / GROUP):
+            if counts["rnn_tail"] < groups:
                 raise AssertionError(f"flagship: the tail kernel ran {counts['rnn_tail']} times "
-                                     f"for at least {math.ceil(T / GROUP)} fold groups")
+                                     f"for at least {groups} fold groups")
             # three ladder levels (2048, 1024, 512) of at least one round each
-            if counts["rnn_round"] < 3 * math.ceil(T / GROUP):
+            if counts["rnn_round"] < 3 * groups:
                 raise AssertionError(f"flagship: the round kernel ran {counts['rnn_round']} times "
-                                     f"for {math.ceil(T / GROUP)} fold groups of 3 levels")
-            # wMetaC per fold + sMetaC: serial Ward; every opt_hclust: the cut replay
-            if counts["ward_serial"] < T + 1 or counts["cutree"] < T + 1 + counts["rnn_tail"]:
-                raise AssertionError(f"flagship: wMetaC/sMetaC did not go through the kernels: {counts}")
+                                     f"for {groups} fold groups of 3 levels")
+            # serial Ward: every fold's wMetaC problem and sMetaC's, in at
+            # most one wMetaC launch per fold group and one for sMetaC;
+            # every linkage its cut replay
+            if problems["ward_serial"] < T + 1 or counts["ward_serial"] > groups + 1:
+                raise AssertionError(f"flagship: serial Ward took {problems['ward_serial']} problems (>= {T + 1}) "
+                                     f"in {counts['ward_serial']} launches (<= {groups + 1}): {counts}")
+            if counts["cutree"] < counts["ward_serial"] + counts["rnn_tail"]:
+                raise AssertionError(f"flagship: a linkage went without its cut replay: {counts}")
             if routes["cutree"]["serial"]:
                 raise AssertionError(f"flagship: cut-replay problems took the serial route: {routes}")
 
-    # (c) one more f32 run with the fold program's parts timed
-    acc, saved = _timed_parts(torch)
-    try:
-        res, wall, _, _ = _run_counted(Xbig, device=dev, **SEED_KW)
-    finally:
-        for mod, name, real in saved:
-            setattr(mod, name, real)
-    fe = _stages(res)["fold_ensemble"]
-    parts = {k: dict(seconds=v, share_of_fold_ensemble=v / fe) for k, v in acc.items()}
-    print(
-        f"[large] flagship parts, synchronised (fold_ensemble {fe:.3f} s, wall {wall:.3f} s): "
-        + ", ".join(f"{k} {v['seconds']:.3f} s ({100 * v['share_of_fold_ensemble']:.1f}%)" for k, v in parts.items()),
-        flush=True,
-    )
-    runs["parts"] = dict(fold_ensemble_s=fe, wall_s=wall, parts=parts)
+    # (c) two more f32 runs: the fold program's parts timed, and the host
+    # reads of one call
+    runs["parts"] = _parts_and_reads(torch, "large", "flagship", lambda: _run_counted(Xbig, device=dev, **SEED_KW)[:2],
+                                     "fold_ensemble")
     out["flagship_50000x27998"] = runs
     record["large"] = out
     return main_counts, main_res
@@ -1314,7 +1373,7 @@ def phase_unlimited(dev, record, tmp):
     R = _ternary(np.random.default_rng(7500), genes, cfg.ensize_K * cfg.reduced_ndim)
     real = _patched_rp(streaming, R)
     try:
-        card, wall, counts, _ = _run_counted(small, entry="sharp_unlimited", device=dev, **kw)
+        card, wall, counts, _, _ = _run_counted(small, entry="sharp_unlimited", device=dev, **kw)
         dense = sharp_tpu_torch.sharp_unlimited(small, device=dev, sparse_feed=False, **kw)
         t0 = time.perf_counter()
         cpu = sharp_tpu_torch.sharp_unlimited(small, device="cpu", **kw)
@@ -1367,7 +1426,7 @@ def phase_unlimited(dev, record, tmp):
     sharp_tpu_torch.sharp_unlimited(warm, n_cells=n_cells, manifest_dir=None, **api_kw)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    res, wall, counts, routes = _run_counted(data, entry="sharp_unlimited", **api_kw)
+    res, wall, counts, problems, routes = _run_counted(data, entry="sharp_unlimited", **api_kw)
     score = ari(y, res.pred_clusters)
     stages = _stages(res)
     T = math.ceil(API_BLOCK / 2000)          # folds per block
@@ -1375,7 +1434,7 @@ def phase_unlimited(dev, record, tmp):
     print(
         f"[unlimited] flagship 4 blocks ({n_cells} cells): {res.N_pred_cluster} clusters, ARI "
         f"{score:.4f}; wall {wall:.3f} s (warm-up on block 0 {warm_s:.3f} s), {n_cells / wall:.1f} "
-        f"cells/s; launches {counts}; routes {routes}",
+        f"cells/s; launches {counts}; problems {problems}; routes {routes}",
         flush=True,
     )
     print(f"[unlimited] flagship stages (s): {json.dumps(stages)}", flush=True)
@@ -1387,20 +1446,28 @@ def phase_unlimited(dev, record, tmp):
     if counts["rnn_round"] < 3 * groups or counts["rnn_tail"] < groups:
         raise AssertionError(f"unlimited (b): the ladder kernels ran too few times for {groups} "
                              f"fold groups: {counts}")
-    if counts["ward_serial"] < API_BLOCKS * T:
-        raise AssertionError(f"unlimited (b): serial Ward ran fewer times than the {API_BLOCKS * T} "
-                             f"folds' wMetaC: {counts}")
+    # serial Ward: every fold's wMetaC problem, in at most one wMetaC launch
+    # per fold group; the per-block fuses (a launch per shape bucket) and the
+    # global fuse add at most API_BLOCKS + 1
+    if problems["ward_serial"] < API_BLOCKS * T or counts["ward_serial"] > groups + API_BLOCKS + 1:
+        raise AssertionError(f"unlimited (b): serial Ward took {problems['ward_serial']} problems (>= "
+                             f"{API_BLOCKS * T} folds) in {counts['ward_serial']} launches (<= "
+                             f"{groups + API_BLOCKS + 1}): {counts}")
     if counts["cutree"] < counts["ward_serial"] + counts["rnn_tail"]:
         raise AssertionError(f"unlimited (b): a linkage went without its cut replay: {counts}")
     if routes["cutree"]["serial"]:
         raise AssertionError(f"unlimited (b): cut-replay problems took the serial route: {routes}")
     out["flagship_4x50000x27998"] = dict(
         n_cells=n_cells, wall_s=wall, warm_s=warm_s, cells_per_s=n_cells / wall, ari=score,
-        clusters=res.N_pred_cluster, stages=stages, launches=counts, routes=routes, fold_groups=groups,
-        sblk_bytes=sblk_bytes, datagen_s=gen_s,
+        clusters=res.N_pred_cluster, stages=stages, launches=counts, problems=problems, routes=routes,
+        fold_groups=groups, sblk_bytes=sblk_bytes, datagen_s=gen_s,
+        parts=_parts_and_reads(
+            torch, "unlimited", "flagship 4 blocks",
+            lambda: _run_counted(data, entry="sharp_unlimited", **api_kw)[:2], "block_pass",
+        ),
     )
     record["unlimited"] = out
-    return counts, dict(dir=data, labels=res.pred_clusters, clusters=res.N_pred_cluster, y=y, wall_s=wall,
+    return counts, problems, dict(dir=data, labels=res.pred_clusters, clusters=res.N_pred_cluster, y=y, wall_s=wall,
                         knobs=api_kw)
 
 
@@ -1412,29 +1479,38 @@ def _same_result(a, b):
             and np.array_equal(a.folds, b.folds))
 
 
-def _gate_launches(label, c, folds, groups):
-    """Every kernel in one shard's or one process's launch counts `c`: per
-    fold group the tail kernel once and the round kernel at its 3 ladder
-    levels, serial Ward at least once for each of `folds` folds' wMetaC
-    (0 on an ens shard that runs no wMetaC), a cut replay per linkage."""
-    if c is None or c["rnn_tail"] < groups or c["rnn_round"] < 3 * c["rnn_tail"] or (
-        c["ward_serial"] < folds or c["cutree"] < c["ward_serial"] + c["rnn_tail"]
+def _gate_launches(label, c, p, folds, groups, fuses=0):
+    """Every kernel in one shard's or one process's launch counts `c` and
+    problem counts `p`: per fold group the tail kernel once and the round
+    kernel at its 3 ladder levels; serial Ward on the wMetaC problems of
+    all `folds` folds (0 on an ens shard that runs no wMetaC) in at most one
+    launch per fold group, plus at most `fuses` sMetaC launches; a cut
+    replay per linkage."""
+    if c is None or p is None or c["rnn_tail"] < groups or c["rnn_round"] < 3 * c["rnn_tail"] or (
+        p["ward_serial"] < folds or c["ward_serial"] > groups + fuses
+        or c["cutree"] < c["ward_serial"] + c["rnn_tail"]
     ):
-        raise AssertionError(f"parallel {label} (wMetaC of {folds} folds, >= {groups} fold groups) did not "
-                             f"launch every kernel: {c}")
+        raise AssertionError(f"parallel {label} (wMetaC of {folds} folds, >= {groups} fold groups, <= {fuses} "
+                             f"fuses) did not launch every kernel as it should: launches {c}, problems {p}")
 
 
-def _gate_shards(label, shards, T, n_data, n_ens):
+def _gate_shards(label, shards, shard_problems, T, n_data, n_ens):
     """_gate_launches on every shard of an (n_data, n_ens) mesh over T folds:
     data shard d's folds are block_slice(T, d, n_data); each of its ens
-    shards runs the ladder of their groups, its first the folds' wMetaC."""
+    shards runs the ladder of their groups, its first the folds' wMetaC
+    (the fuse runs outside the shards)."""
     from sharp_tpu_torch.parallel.multihost import block_slice
 
     for d in range(n_data):
         folds = len(block_slice(T, d, n_data))
         for e in range(n_ens):
-            _gate_launches(f"{label} shard {d},{e}", shards.get(f"{d},{e}"), folds if e == 0 else 0,
-                           math.ceil(folds / GROUP))
+            key = f"{d},{e}"
+            _gate_launches(f"{label} shard {key}", shards.get(key), shard_problems.get(key),
+                           folds if e == 0 else 0, math.ceil(folds / GROUP))
+
+
+def _by_shard(counter):
+    return {f"{k[0]},{k[1]}": v for k, v in sorted(counter.items())}
 
 
 def phase_parallel_folds(dev, record, Xbig, ybig, flagship):
@@ -1459,19 +1535,19 @@ def phase_parallel_folds(dev, record, Xbig, ybig, flagship):
     }
     rows = {}
     for name, (kw, Xr, dr, ref) in runs.items():
-        card, wall, counts, _ = _run_counted(Xr, device=dev, **kw, **dr, **SEED_KW)
-        shards = {f"{k[0]},{k[1]}": v for k, v in sorted(linkage_cuda.SHARD_LAUNCHES.items())}
+        card, wall, counts, _, _ = _run_counted(Xr, device=dev, **kw, **dr, **SEED_KW)
+        shards, shard_problems = _by_shard(linkage_cuda.SHARD_LAUNCHES), _by_shard(linkage_cuda.SHARD_PROBLEMS)
         t = time.perf_counter()
         cpu = sharp_tpu_torch.sharp(Xr, device="cpu", **kw, **dr, **SEED_KW)
         cpu_s = time.perf_counter() - t
         rows[name] = dict(card_equals_one_device=_same_result(card, ref), cpu_equals_one_device=_same_result(cpu, ref),
                           clusters=card.N_pred_cluster, per_member_k=card.per_member_k.tolist(), wall_s=wall,
-                          cpu_s=cpu_s, launches=counts, launches_by_shard=shards)
+                          cpu_s=cpu_s, launches=counts, launches_by_shard=shards, problems_by_shard=shard_problems)
         print(f"[parallel] cells_6000x5000 {name} {kw}: {rows[name]}", flush=True)
         if not (rows[name]["card_equals_one_device"] and rows[name]["cpu_equals_one_device"]):
             raise AssertionError(f"parallel (a) {name}: labels, per-member k or folds differ from one device")
         n_ens = kw.get("ensemble_axis", 1)
-        _gate_shards(f"(a) {name}", shards, len(card.per_member_k), kw["n_devices"] // n_ens, n_ens)
+        _gate_shards(f"(a) {name}", shards, shard_problems, len(card.per_member_k), kw["n_devices"] // n_ens, n_ens)
     rows["phase_s"] = time.perf_counter() - t0
     out["cells_6000x5000"] = rows
 
@@ -1489,42 +1565,45 @@ def phase_parallel_folds(dev, record, Xbig, ybig, flagship):
     sharded._fold_groups = timed
     try:
         t0 = time.perf_counter()
-        res, wall, counts, routes = _run_counted(Xbig, device=dev, n_devices=2, **SEED_KW)
+        res, wall, counts, problems, routes = _run_counted(Xbig, device=dev, n_devices=2, **SEED_KW)
     finally:
         sharded._fold_groups = real
     spans = [dict(folds=f, start_s=a - t0, end_s=e - t0, seconds=e - a) for a, e, f in sorted(spans)]
-    shards = {f"{k[0]},{k[1]}": v for k, v in sorted(linkage_cuda.SHARD_LAUNCHES.items())}
+    shards, shard_problems = _by_shard(linkage_cuda.SHARD_LAUNCHES), _by_shard(linkage_cuda.SHARD_PROBLEMS)
     score = ari(ybig, res.pred_clusters)
     one_wall = record["large"]["flagship_50000x27998"]["auto"]["wall_s"]
     same = bool(np.array_equal(res.pred_clusters, flagship.pred_clusters))
     print(
         f"[parallel] flagship_50000x27998 n_devices=2: {res.N_pred_cluster} clusters, ARI {score:.4f}, labels "
         f"{'identical to' if same else 'DIFFER from'} phase 5 (b)'s; wall {wall:.3f} s (one device, phase 5 (b): "
-        f"{one_wall:.3f} s); launches {counts}; by shard {shards}; routes {routes}; shards' fold passes {spans}",
+        f"{one_wall:.3f} s); launches {counts}; by shard {shards}; problems by shard {shard_problems}; routes "
+        f"{routes}; shards' fold passes {spans}",
         flush=True,
     )
     print(f"[parallel] flagship n_devices=2 stages (s): {json.dumps(_stages(res))}", flush=True)
     if not same or score < 0.9:
         raise AssertionError(f"parallel (b): labels identical {same}, ARI {score:.4f} (>= 0.9)")
-    _gate_shards("(b)", shards, T, 2, 1)
+    _gate_shards("(b)", shards, shard_problems, T, 2, 1)
     if routes["cutree"]["serial"]:
         raise AssertionError(f"parallel (b): cut-replay problems took the serial route: {routes}")
     out["flagship_50000x27998_n_devices_2"] = dict(
         wall_s=wall, one_device_wall_s=one_wall, ari=score, clusters=res.N_pred_cluster, labels_identical=same,
-        launches=counts, launches_by_shard=shards, routes=routes, stages=_stages(res), shard_fold_passes=spans,
+        launches=counts, problems=problems, launches_by_shard=shards, problems_by_shard=shard_problems,
+        routes=routes, stages=_stages(res), shard_fold_passes=spans,
     )
     record["parallel"] = out
     return counts
 
 
-# `python -m sharp_tpu_torch <argv>` that prints its kernels' launch counts
-# after the command, on a line of its own
+# `python -m sharp_tpu_torch <argv>` that prints its kernels' launch and
+# problem counts after the command, each on a line of its own
 _CLI_COUNTED = (
     "import json, sys\n"
     "from sharp_tpu_torch.cli import main\n"
     "from sharp_tpu_torch.ops import linkage_cuda\n"
     "rc = main(sys.argv[1:])\n"
     "print('[launches] ' + json.dumps(linkage_cuda.LAUNCHES), flush=True)\n"
+    "print('[problems] ' + json.dumps(linkage_cuda.PROBLEMS), flush=True)\n"
     "sys.exit(rc)\n"
 )
 
@@ -1570,6 +1649,7 @@ def phase_parallel_processes(dev, record, flag6):
                 raise AssertionError(f"parallel (c): process {rank} exited {pr.returncode}: {se[-2000:]}")
         counts = [int(re.search(r"(\d+) clusters", so).group(1)) for so, _ in outs]
         launches = [json.loads(re.search(r"^\[launches\] (.*)$", so, re.M).group(1)) for so, _ in outs]
+        problems = [json.loads(re.search(r"^\[problems\] (.*)$", so, re.M).group(1)) for so, _ in outs]
         # each process's sharp_unlimited call, without its start-up
         call_s = [float(re.search(r"total time: ([0-9.]+)s", so).group(1)) for so, _ in outs]
         labels = [np.load(os.path.join(tmp, f"p{rank}.npz"))["pred_clusters"] for rank in range(2)]
@@ -1584,7 +1664,8 @@ def phase_parallel_processes(dev, record, flag6):
     score = ari(flag6["y"], combined)
     row = dict(wall_s=wall, call_s=call_s, single_process_wall_s=flag6["wall_s"],
                cells_per_process=[len(x) for x in labels],
-               clusters_reported=counts, labels_identical=same, ari=score, launches_by_process=launches)
+               clusters_reported=counts, labels_identical=same, ari=score, launches_by_process=launches,
+               problems_by_process=problems)
     print(f"[parallel] two processes over the 4 flagship SBLK blocks: {row}", flush=True)
     if not same or counts[0] != counts[1] or counts[0] != flag6["clusters"]:
         raise AssertionError(f"parallel (c): labels identical {same}, clusters {counts} (one process: "
@@ -1592,7 +1673,8 @@ def phase_parallel_processes(dev, record, flag6):
     T = math.ceil(API_BLOCK / kn["partition_ncells"])   # folds per block
     for rank in range(2):
         blocks = len(block_slice(API_BLOCKS, rank, 2))
-        _gate_launches(f"(c) process {rank}", launches[rank], blocks * T, blocks * math.ceil(T / GROUP))
+        _gate_launches(f"(c) process {rank}", launches[rank], problems[rank], blocks * T,
+                       blocks * math.ceil(T / GROUP), fuses=blocks + 1)
     if score < 0.95 or counts[0] > math.ceil(1.5 * API_TYPES):
         raise AssertionError(f"parallel (c): ARI {score:.4f} (>= 0.95), {counts[0]} clusters "
                              f"(<= {math.ceil(1.5 * API_TYPES)})")
@@ -1642,7 +1724,7 @@ def main() -> int:
     del Xbig, ybig, flagship
     tmp = tempfile.mkdtemp(prefix="sharp_smoke_")
     try:
-        unl_counts, flag6 = phase_unlimited(dev, record, tmp)
+        unl_counts, unl_problems, flag6 = phase_unlimited(dev, record, tmp)
         # phase 8 (c) over phase 6 (b)'s SBLK directory, before it is removed
         phase_parallel_processes(dev, record, flag6)
     finally:
@@ -1657,20 +1739,23 @@ def main() -> int:
         raise AssertionError(f"the port loaded modules of JAX or of the JAX package: {loaded[:10]}")
 
     record["total_s"] = time.perf_counter() - t0
-    ward, cut = rows["ward_wmetac_fold"]["f32"], rows["cutree_80x2048"]
+    # serial Ward at the shape the main path gives it most: a fold group's
+    # wMetaC meta problems in one launch
+    ward, cut = rows[f"ward_wmetac_{GROUP}x256"]["f32"], rows["cutree_80x2048"]
     # every serial Ward shape, both storage types
     ward_err = max(r[st]["max_abs_err"] for r in rows.values() for st in ("f32", "bf16") if st in r)
     r32 = rounds["f32"][max(rounds["f32"])]
 
     def entry(name, replaces, err, ms, plain_ms, bound_ms, bound_by, device_ms=None):
-        # launches: sharp_unlimited over the 4 flagship blocks; launches_by_path
-        # adds the large tier's flagship run, phase 7 (a)'s gethclust calls
-        # and this slice's main path, the flagship block over two shards.
+        # launches: sharp_unlimited over the 4 flagship blocks (problems: the
+        # problems or lanes those launches took); launches_by_path adds the
+        # large tier's flagship run, phase 7 (a)'s gethclust calls and the
+        # flagship block over two shards.
         # ms: one call through the wrapper (CUDA events); device_ms: the
         # kernel alone (torch.profiler), null where not measured
         return {
             "name": name, "route": "cuda", "source": f"sharp_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": unl_counts[name], "max_abs_err": err,
+            "replaces": replaces, "launches": unl_counts[name], "problems": unl_problems[name], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "device_ms": device_ms,
             "launches_by_path": {"large": large_counts[name], "unlimited": unl_counts[name],

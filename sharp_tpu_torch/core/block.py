@@ -7,17 +7,18 @@ function over written-out fold and ensemble axes: one product projects all
 G folds for all K members, the G*K distance matrices are built in one
 batch, the G*K linkages go to one linkage call (one serial Ward launch, or
 one ladder whose rounds and tail kernel serve every lane) and the G*K cut
-replays to the replay kernel in one launch. Scoring and the rule chain
-then run per member.
+replays to the replay kernel in one launch; the G*K selections (the
+candidate sweep and the rule chain) run in one `select_cut`, as the JAX
+package vmaps `opt_hclust` over the members.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Union
+from typing import NamedTuple, Optional
 
 import torch
 
-from sharp_tpu_torch.ops.linkage import CutForest, LinkageResult, resolve_linkage_backend
+from sharp_tpu_torch.ops.linkage import counts_per_problem, resolve_linkage_backend
 from sharp_tpu_torch.ops.linkage_cuda import cutree_multi_kernel
 from sharp_tpu_torch.ops.rp import rp_project_ensemble
 from sharp_tpu_torch.ops.select import linkage, prep_distance, select_cut
@@ -33,7 +34,7 @@ class BlockEnsembleResult(NamedTuple):
 def cluster_block_ensemble(
     X: torch.Tensor,            # ([G,] n_pad, genes) raw (not log) expression
     real_mask: torch.Tensor,    # ([G,] n_pad) bool
-    n_real: Union[int, Sequence[int]],   # one per fold with a fold axis
+    n_real,                     # int, or one per fold with a fold axis (ints or a tensor)
     R_all: torch.Tensor,        # (genes, K*p) stacked ensemble RP matrix
     maxN: int,
     log_transform: bool,
@@ -55,7 +56,7 @@ def cluster_block_ensemble(
     folded = X.dim() == 3
     Xf = X if folded else X[None]
     masks = real_mask if folded else real_mask[None]
-    nreal = [int(v) for v in (n_real if folded else [n_real])]
+    nreal = counts_per_problem(n_real, Xf.shape[0], X.device)
     G, n_pad, genes = Xf.shape
     maxN = int(maxN)
 
@@ -65,7 +66,7 @@ def cluster_block_ensemble(
     proj = proj.reshape(K, G, n_pad, p).transpose(0, 1)                     # (G, K, n_pad, p)
     proj = proj * masks[:, None, :, None].to(proj.dtype)
     lane_mask = masks.repeat_interleave(K, dim=0)                           # (G*K, n_pad)
-    lane_nreal = [nr for nr in nreal for _ in range(K)]
+    lane_nreal = nreal.repeat_interleave(K)
 
     backend = resolve_linkage_backend(linkage_backend, n_pad, hmethod)
     D, D_real, feats_unit = prep_distance(proj.reshape(G * K, n_pad, p), lane_mask, symmetric=False)
@@ -75,25 +76,15 @@ def cluster_block_ensemble(
         link.merges, lane_nreal, lane_mask, maxN, minN=minN, ncand=ncand, nc_pad=nc_pad
     )
 
-    labels, k_per, maxsil = [], [], []
-    for lane in range(G * K):
-        g = lane // K
-        res = select_cut(
-            D_real[lane], feats_unit[lane],
-            LinkageResult(link.merges[lane], link.heights[lane]),
-            CutForest(cuts.labels[lane], cuts.k[lane], cuts.valid[lane]),
-            masks[g], nreal[g], maxN,
-            minN=minN, ncand=ncand, nc_pad=nc_pad, sil_thre=sil_thre,
-            height_Ntimes=height_Ntimes, N_cluster=indN_cluster,
-            height_tail=height_tail,
-        )
-        labels.append(res.labels)
-        k_per.append(res.k)
-        maxsil.append(res.maxsil)
+    res = select_cut(                                          # one selection for all lanes
+        D_real, feats_unit, link, cuts, lane_mask, lane_nreal, maxN,
+        minN=minN, ncand=ncand, nc_pad=nc_pad, sil_thre=sil_thre,
+        height_Ntimes=height_Ntimes, N_cluster=indN_cluster, height_tail=height_tail,
+    )
     out = BlockEnsembleResult(
-        labels=torch.stack(labels).reshape(G, K, n_pad).transpose(1, 2),
-        k_per=torch.stack(k_per).reshape(G, K),
-        maxsil=torch.stack(maxsil).reshape(G, K),
+        labels=res.labels.reshape(G, K, n_pad).transpose(1, 2),
+        k_per=res.k.reshape(G, K),
+        maxsil=res.maxsil.reshape(G, K),
         mean_proj=proj.mean(dim=1),
     )
     return out if folded else BlockEnsembleResult(*(x[0] for x in out))

@@ -4,8 +4,9 @@ Counterpart of `sharp_tpu/core/fold.py`. A fold exports only O(clusters x
 p) summary data (labels, centroid sums, counts, x0 votes): the cross-fold
 merge traffic of the reference's design (SURVEY.md §5.7). The program
 takes a group of G folds at once: one ensemble call covers the G*K members
-(one projection, one linkage call, one cut-replay launch), then wMetaC runs
-fold by fold.
+(one projection, one linkage call, one cut-replay launch, one selection),
+then wMetaC covers the G folds in one call (one serial Ward launch of G
+meta problems), as the JAX package vmaps its fold program over a group.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from sharp_tpu_torch.config import SharpConfig
 from sharp_tpu_torch.core.block import BlockEnsembleResult, cluster_block_ensemble
 from sharp_tpu_torch.core.wmetac import wmetac
+from sharp_tpu_torch.ops.linkage import counts_per_problem
 
 
 class FoldSummary(NamedTuple):
@@ -76,7 +78,8 @@ def fold_program(
     folded = X.dim() == 3
     Xf = X if folded else X[None]
     masks = mask if folded else mask[None]
-    nreal = [int(v) for v in (n_real if folded else [n_real])]
+    # the real counts go to the device once, before any work is queued
+    nreal = counts_per_problem(n_real if folded else [n_real], Xf.shape[0], Xf.device)
     blk = cluster_block_ensemble(
         Xf, masks, nreal, R_all, maxN, log_transform,
         K=K, minN=minN, ncand=ncand, nc_pad=nc_pad,
@@ -93,7 +96,7 @@ def fold_program(
 def fold_summary(
     blk: BlockEnsembleResult,      # (G, B, K) labels and the rest, G folds
     masks: torch.Tensor,           # (G, B) bool
-    nreal: Sequence[int],
+    nreal,                         # (G,) int32 on the device, or G ints
     *,
     K: int,
     minN: int,
@@ -105,27 +108,20 @@ def fold_summary(
     linkage_backend: str = "auto",
     hmethod: str = "ward.D",
 ) -> FoldSummary:
-    """wMetaC per fold on a group's ensemble result, and the fold summaries
+    """wMetaC of a group's G folds in one call, and the fold summaries
     (batched over the group). The mesh's ensemble split
     (`parallel/sharded.py`) gathers its shards' members into `blk` first."""
-    fields = {name: [] for name in FoldSummary._fields}
-    for g in range(masks.shape[0]):
-        wres = wmetac(
-            blk.labels[g], masks[g], nreal[g], maxN,
-            K=K, nc_pad=nc_pad, allc_pad=allc_pad,
-            meta_minN=minN, meta_ncand=ncand,
-            sil_thre=0.0, height_Ntimes=height_Ntimes,
-            hmethod=hmethod, linkage_backend=linkage_backend,
-        )
-        oh = F.one_hot(wres.finalC.long(), nc_pad).to(torch.float32)
-        oh = oh * masks[g][:, None].to(torch.float32)
-        fields["finalC"].append(wres.finalC)
-        fields["n_meta"].append(wres.n_meta.to(oh.device))
-        fields["cent_sum"].append(oh.T @ blk.mean_proj[g])
-        fields["counts"].append(oh.sum(dim=0))
-        fields["x0"].append(wres.x0)
-        fields["overflow"].append(wres.overflow.to(oh.device))
+    wres = wmetac(
+        blk.labels, masks, nreal, maxN,
+        K=K, nc_pad=nc_pad, allc_pad=allc_pad,
+        meta_minN=minN, meta_ncand=ncand,
+        sil_thre=0.0, height_Ntimes=height_Ntimes,
+        hmethod=hmethod, linkage_backend=linkage_backend,
+    )
+    oh = F.one_hot(wres.finalC.long(), nc_pad).to(torch.float32)
+    oh = oh * masks[..., None].to(torch.float32)
     return FoldSummary(
-        **{k: torch.stack(v) for k, v in fields.items() if v},
-        mean_proj=blk.mean_proj, k_per=blk.k_per, maxsil=blk.maxsil,
+        finalC=wres.finalC, n_meta=wres.n_meta, cent_sum=oh.transpose(1, 2) @ blk.mean_proj,
+        counts=oh.sum(dim=1), mean_proj=blk.mean_proj, x0=wres.x0, k_per=blk.k_per,
+        maxsil=blk.maxsil, overflow=wres.overflow,
     )

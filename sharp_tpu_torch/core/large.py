@@ -12,8 +12,10 @@ mean-RP space (:747-773), un-permute + tiny-cluster merge + relabel
 The folds run in groups through `parallel/sharded.process_folds`, over a
 mesh of devices when `n_devices > 1`; cross-fold communication is
 exactly the per-fold summaries (labels, centroid stats, mean-RP features),
-O(clusters x p). The host-side helpers
-here are numpy copies of the JAX package's (that module imports jax).
+O(clusters x p). `fuse_folds` fuses one block's folds (`sharp()`);
+`fuse_blocks` fuses many blocks' at once (`sharp_unlimited`). The
+host-side helpers here are numpy copies of the JAX package's (that module
+imports jax).
 """
 
 from __future__ import annotations
@@ -219,22 +221,53 @@ def fuse_folds(
 ) -> FuseResult:
     """Global sMetaC over per-fold cluster summaries (R/SHARP.R:747-773),
     run on `device`."""
-    _warn_overflow(fold_results)
-    if len(fold_results) == 1:
-        return _single_fold_result(fold_results[0])
-    prep = _prepare_block(fold_results, cfg)
-    cents = np.zeros((prep.NC_pad, prep.cents.shape[1]), np.float32)
-    cents[: prep.NC] = prep.cents
-    valid = np.arange(prep.NC_pad) < prep.NC
-    sres = smetac(
-        torch.from_numpy(cents).to(device), torch.from_numpy(valid).to(device),
-        prep.NC, prep.maxN,
-        minN=prep.minN, ncand=prep.ncand, meta_nc_pad=prep.meta_nc_pad,
-        sil_thre=cfg.sil_thre, height_Ntimes=cfg.height_Ntimes,
-        finalN_cluster=finalN_cluster,
-        hmethod=cfg.hmethod, linkage_backend=cfg.linkage_backend,
-    )
-    return _finish_block(fold_results, cfg, prep, sres.tf.cpu().numpy(), sres.n_final)
+    return fuse_blocks([fold_results], cfg, finalN_cluster, device=device)[0]
+
+
+def fuse_blocks(
+    blocks_fold_results: List[List[dict]],
+    cfg: SharpConfig,
+    finalN_cluster: Optional[int] = None,
+    *,
+    device="cuda",
+) -> List[FuseResult]:
+    """Per-block sMetaC fuses, batched: the same results as
+    `[fuse_folds(frs, cfg) for frs in blocks_fold_results]`, with the
+    blocks that share a shape key (NC_pad, minN, ncand, meta_nc_pad) fused
+    in one `smetac` call (the JAX package's vmapped fuse,
+    `sharp_tpu/core/large.py:328-418`): one serial Ward launch and one cut
+    replay for the bucket. The caller bounds the batch (`sharp_unlimited`'s
+    `fuse_batch`). A block of one fold is its own fuse
+    (`_single_fold_result`)."""
+    results: List[Optional[FuseResult]] = [None] * len(blocks_fold_results)
+    preps: List[Optional[_PreparedBlock]] = [None] * len(blocks_fold_results)
+    by_shape = {}
+    for bi, frs in enumerate(blocks_fold_results):
+        _warn_overflow(frs)
+        if len(frs) == 1:
+            results[bi] = _single_fold_result(frs[0])
+            continue
+        prep = preps[bi] = _prepare_block(frs, cfg)
+        by_shape.setdefault((prep.NC_pad, prep.minN, prep.ncand, prep.meta_nc_pad), []).append(bi)
+    for (NC_pad, minN, ncand, meta_nc_pad), idxs in by_shape.items():
+        bucket = [preps[bi] for bi in idxs]
+        cents = np.zeros((len(bucket), NC_pad, bucket[0].cents.shape[1]), np.float32)
+        for b, pr in enumerate(bucket):
+            cents[b, : pr.NC] = pr.cents
+        NCs = np.asarray([pr.NC for pr in bucket], np.int32)
+        valid = np.arange(NC_pad)[None, :] < NCs[:, None]
+        sres = smetac(
+            torch.from_numpy(cents).to(device), torch.from_numpy(valid).to(device), NCs,
+            [pr.maxN for pr in bucket],
+            minN=minN, ncand=ncand, meta_nc_pad=meta_nc_pad,
+            sil_thre=cfg.sil_thre, height_Ntimes=cfg.height_Ntimes,
+            finalN_cluster=finalN_cluster,
+            hmethod=cfg.hmethod, linkage_backend=cfg.linkage_backend,
+        )
+        tfs, n_finals = sres.tf.cpu().numpy(), sres.n_final.cpu().numpy()
+        for b, bi in enumerate(idxs):
+            results[bi] = _finish_block(blocks_fold_results[bi], cfg, preps[bi], tfs[b], int(n_finals[b]))
+    return results
 
 
 def sharp_large(

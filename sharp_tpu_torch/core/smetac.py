@@ -15,18 +15,21 @@ This stage only touches O(#clusters x p) data.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
+from sharp_tpu_torch.ops.linkage import counts_per_problem
 from sharp_tpu_torch.ops.select import opt_hclust
 
 
 class SMetaCResult(NamedTuple):
-    tf: torch.Tensor       # (meta slots,) meta label per fold-cluster
-    n_final: int
-    maxsil: torch.Tensor
-    oind: int
+    """One block's fuse, or B blocks' with a leading block axis."""
+
+    tf: torch.Tensor        # ([B,] NC_pad) meta label per fold-cluster
+    n_final: torch.Tensor   # ([B]) int32
+    maxsil: torch.Tensor    # ([B]) f32
+    oind: torch.Tensor      # ([B]) int64 chosen candidate index
 
 
 def smetac_range(n_cells: int, minN: int, maxN: int, n_clusters: int):
@@ -42,30 +45,38 @@ def smetac_range(n_cells: int, minN: int, maxN: int, n_clusters: int):
 
 
 def smetac(
-    centroids: torch.Tensor,   # (NC_pad, p) fold-cluster centroids in mean-RP space
-    valid: torch.Tensor,       # (NC_pad,) bool
-    n_clusters: int,           # actual number of fold-clusters
-    maxN: int,
+    centroids: torch.Tensor,   # ([B,] NC_pad, p) fold-cluster centroids in mean-RP space
+    valid: torch.Tensor,       # ([B,] NC_pad) bool
+    n_clusters,                # actual number of fold-clusters: int, or (B,)
+    maxN,                      # int, or (B,)
     *,
     minN: int,
     ncand: int,
     meta_nc_pad: int,
     sil_thre: float = 0.35,
     height_Ntimes: float = 2.0,
-    finalN_cluster: Optional[int] = None,
+    finalN_cluster=None,
     hmethod: str = "ward.D",
     linkage_backend: str = "auto",
 ) -> SMetaCResult:
-    n_clusters, maxN = int(n_clusters), int(maxN)
+    """sMetaC of one block, or of B blocks of one shape at once (one
+    `opt_hclust` over B lanes, as the JAX package vmaps `smetac` over a
+    shape bucket). Everything stays on the device."""
+    squeeze = centroids.dim() == 2
+    if squeeze:
+        centroids, valid = centroids[None], valid[None]
+    B, NC_pad = valid.shape
+    dev = centroids.device
+    nc = counts_per_problem(n_clusters, B, dev).long()
     # Pearson correlation of centroids (R/sMetaC.R:67-78): center rows,
     # unit-normalize, one product
     Xc = centroids - centroids.mean(dim=-1, keepdim=True)
     U = Xc * torch.rsqrt((Xc * Xc).sum(dim=-1, keepdim=True) + 1e-12)
-    S = U @ U.T
-    S = torch.where(torch.eye(S.shape[0], dtype=torch.bool, device=S.device), 1.0, S)
+    S = U @ U.transpose(1, 2)
+    S = torch.where(torch.eye(NC_pad, dtype=torch.bool, device=dev), 1.0, S)
 
     res = opt_hclust(
-        S, valid, n_clusters, min(maxN, n_clusters - 1),
+        S, valid, nc, torch.minimum(counts_per_problem(maxN, B, dev).long(), nc - 1),
         symmetric=True, minN=minN, ncand=ncand, nc_pad=meta_nc_pad,
         sil_thre=sil_thre, height_Ntimes=height_Ntimes, N_cluster=finalN_cluster,
         hmethod=hmethod, linkage_backend=linkage_backend,
@@ -77,19 +88,17 @@ def smetac(
     msil_valid = torch.where(
         res.valid & torch.isfinite(res.msil), res.msil, float("-inf")
     )
-    second_val = torch.sort(msil_valid).values[-2] if ncand > 1 else msil_valid[0]
-    second_idx = int(torch.argmax((msil_valid == second_val).to(torch.int32)))
+    second_val = torch.sort(msil_valid, dim=-1).values[:, -2] if ncand > 1 else msil_valid[:, 0]
+    second_idx = torch.argmax((msil_valid == second_val[:, None]).to(torch.int32), dim=-1)
     override = (
-        ncand > 1
-        and int(res.k) == 2
-        and bool(res.maxsil > sil_thre)
-        and bool(torch.isfinite(second_val))
-        and finalN_cluster is None
+        (res.k == 2) & (res.maxsil > sil_thre) & torch.isfinite(second_val)
+        & (ncand > 1 and finalN_cluster is None)
     )
-    oind = second_idx if override else int(res.oind)
-    tf = res.all_labels[oind]
+    oind = torch.where(override, second_idx, res.oind)
+    tf = res.all_labels[torch.arange(B, device=dev), oind]
 
-    occ = torch.zeros(meta_nc_pad, dtype=torch.int32, device=tf.device)
-    occ = occ.scatter_reduce(0, tf.long(), valid.to(torch.int32), reduce="amax")
-    occ[meta_nc_pad - 1] = 0
-    return SMetaCResult(tf=tf, n_final=int(occ.sum()), maxsil=res.maxsil, oind=oind)
+    occ = torch.zeros((B, meta_nc_pad), dtype=torch.int32, device=dev)
+    occ = occ.scatter_reduce(1, tf.long(), valid.to(torch.int32), reduce="amax")
+    occ[:, meta_nc_pad - 1] = 0
+    out = SMetaCResult(tf=tf, n_final=occ.sum(dim=1, dtype=torch.int32), maxsil=res.maxsil, oind=oind)
+    return SMetaCResult(*(x[0] for x in out)) if squeeze else out

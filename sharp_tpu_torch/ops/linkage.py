@@ -611,7 +611,17 @@ def densify_labels(lab: torch.Tensor, real_mask: torch.Tensor, nc_pad: int):
 
 
 def counts_per_problem(n_real, G: int, device) -> torch.Tensor:
-    nr = torch.as_tensor(n_real, dtype=torch.int32, device=device).reshape(-1)
+    """(G,) int32 on `device` from an int, a sequence or a tensor. No copy
+    waits for the stream: an int is filled on the device, and a sequence is
+    copied to a card from pinned memory."""
+    if isinstance(n_real, (int, np.integer)):
+        return torch.full((G,), int(n_real), dtype=torch.int32, device=device)
+    if isinstance(n_real, torch.Tensor):
+        nr = n_real.to(device, torch.int32).reshape(-1)
+    else:
+        nr = torch.as_tensor(n_real, dtype=torch.int32).reshape(-1)
+        if torch.device(device).type == "cuda":
+            nr = nr.pin_memory().to(device, non_blocking=True)
     if nr.numel() == 1 and G != 1:
         nr = nr.expand(G)
     if nr.numel() != G:
@@ -651,15 +661,17 @@ def cut_forest(
 ) -> CutForest:
     """Dense labels, cluster counts and the validity mask of (G, ncand, n)
     snapshots (shared by the plain and the kernel replay); real_mask (n,)
-    for all problems or (G, n) one per problem."""
+    for all problems or (G, n) one per problem; n_real and maxN an int or
+    one per problem (a list or a tensor, read on the device)."""
     G = snaps.shape[0]
     rm = real_mask[:, None, :] if real_mask.dim() == 2 else real_mask
     dense, k = densify_labels(snaps, rm, nc_pad)
     nr = counts_per_problem(n_real, G, snaps.device)[:, None]
+    mx = counts_per_problem(maxN, G, snaps.device)[:, None]
     ks = minN + torch.arange(ncand, device=snaps.device)[None, :]
     # nc_pad - 1 caps representable cuts (dense ids must clear the
     # reserved garbage slot)
-    valid = (ks <= nr - 1) & (ks <= int(maxN)) & (ks <= nc_pad - 1)
+    valid = (ks <= nr - 1) & (ks <= mx) & (ks <= nc_pad - 1)
     return CutForest(labels=dense, k=k, valid=valid)
 
 
@@ -676,7 +688,8 @@ def cutree_multi(
     """All cuts k = minN..minN+ncand-1 from one merge-sequence replay
     (`cutree(h, k)` per candidate, R/get_opt_hclust.R:113,132).
 
-    merges (n_pad-1, 2) or (G, n_pad-1, 2); n_real an int or one per problem.
+    merges (n_pad-1, 2) or (G, n_pad-1, 2); n_real and maxN an int or one
+    per problem.
     """
     squeeze = merges.dim() == 2
     mg = merges[None] if squeeze else merges
@@ -687,22 +700,28 @@ def cutree_multi(
     return CutForest(*(x[0] for x in out)) if squeeze else out
 
 
-def real_heights_tail(heights: torch.Tensor, n_real: int, tail: int = 10):
+def real_heights_tail(heights: torch.Tensor, n_real, tail: int = 10):
     """Last `tail` real merge heights, ascending — the reference's
     `tail(h$height, n=10)` (R/get_opt_hclust.R:199).
 
-    Real merges occupy [0, n_real-1) of `heights`; when fewer than `tail`
-    exist, the trailing invalid slots repeat the last valid height so
-    adjacent diffs there are 0. Returns (window (tail,), valid (tail,)).
+    heights (..., m); n_real an int or a tensor of the leading shape (one
+    per problem, read on the device). Real merges occupy [0, n_real-1) of
+    each row; when fewer than `tail` exist, the trailing invalid slots
+    repeat the last valid height so adjacent diffs there are 0. Returns
+    (window (..., tail), valid (..., tail)).
     """
-    m = heights.shape[0]
+    m = heights.shape[-1]
     if m < tail:
-        heights = torch.cat([heights, heights.new_zeros(tail - m)])
+        heights = torch.cat([heights, heights.new_zeros(*heights.shape[:-1], tail - m)], dim=-1)
         m = tail
-    start = min(max(n_real - 1 - tail, 0), max(m - tail, 0))
-    window = heights[start : start + tail]
-    merge_idx = start + torch.arange(tail, device=heights.device)
-    valid = merge_idx < n_real - 1
-    nvalid = int(valid.sum())
-    last_valid = window[max(nvalid - 1, 0)]
+    if not isinstance(n_real, torch.Tensor):
+        n_real = torch.full((), n_real, device=heights.device)
+    nr = n_real[..., None]
+    start = torch.clamp(nr - 1 - tail, 0, max(m - tail, 0))
+    shape = (*heights.shape[:-1], tail)
+    merge_idx = (start + torch.arange(tail, device=heights.device)).expand(shape)
+    window = torch.gather(heights, -1, merge_idx)
+    valid = merge_idx < nr - 1
+    nvalid = valid.sum(dim=-1, keepdim=True)
+    last_valid = torch.gather(window, -1, torch.clamp_min(nvalid - 1, 0))
     return torch.where(valid, window, last_valid), valid

@@ -13,7 +13,8 @@ A wrapper launches its kernel for a CUDA tensor and takes the kernel's
 plain version (`ops/linkage.py`) only for a CPU tensor; any other device,
 dtype, shape or layout raises. Launches go on the current CUDA stream and
 do not synchronise. Each wrapper adds one to its kernel's entry of
-`LAUNCHES` where it launches the kernel, and nowhere else, under a lock:
+`LAUNCHES`, and the problems or lanes it launched to its entry of
+`PROBLEMS`, where it launches the kernel, and nowhere else, under a lock:
 the shards of `parallel/sharded.py` launch from several threads.
 """
 
@@ -53,17 +54,22 @@ _STORE = {torch.float32: 0, torch.bfloat16: 1}
 # launches of each kernel, keyed by the kernel's name; owned by this module,
 # so a wrapper replaced by a test double does not take the count with it
 LAUNCHES = dict.fromkeys(("ward_serial", "cutree", "rnn_tail", "rnn_round"), 0)
-# the same launches by the mesh position (data, ens) of the shard thread that
-# made them (`shard_scope`), kept until cleared
+# the problems (serial Ward, cut replay) or lanes (tail, round) those
+# launches took, summed over the launches
+PROBLEMS = dict.fromkeys(LAUNCHES, 0)
+# the same launches and problems by the mesh position (data, ens) of the
+# shard thread that made them (`shard_scope`), kept until cleared
 SHARD_LAUNCHES = {}
+SHARD_PROBLEMS = {}
 _LAUNCHES_LOCK = threading.Lock()
 _SHARD = threading.local()
 
 
 @contextlib.contextmanager
 def shard_scope(key):
-    """Count the calling thread's launches under `key` in SHARD_LAUNCHES too
-    (`parallel/sharded.py` runs each shard's thread under its position)."""
+    """Count the calling thread's launches and problems under `key` in
+    SHARD_LAUNCHES and SHARD_PROBLEMS too (`parallel/sharded.py` runs each
+    shard's thread under its position)."""
     _SHARD.key = key
     try:
         yield
@@ -71,12 +77,14 @@ def shard_scope(key):
         _SHARD.key = None
 
 
-def _count(name: str) -> None:
+def _count(name: str, problems: int) -> None:
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
+        PROBLEMS[name] += problems
         key = getattr(_SHARD, "key", None)
         if key is not None:
             SHARD_LAUNCHES.setdefault(key, dict.fromkeys(LAUNCHES, 0))[name] += 1
+            SHARD_PROBLEMS.setdefault(key, dict.fromkeys(LAUNCHES, 0))[name] += problems
 
 
 class _ThreadRoutes:
@@ -163,7 +171,7 @@ def ward_linkage_serial(
         merges.data_ptr(), heights.data_ptr(), K, n, ldw, _STORE[store_dtype], _stream(),
     )
     _check_rc(rc, "ward_serial")
-    _count("ward_serial")
+    _count("ward_serial", K)
     if squeeze:
         return LinkageResult(merges[0], heights[0])
     return LinkageResult(merges, heights)
@@ -222,7 +230,7 @@ def rnn_tail_kernel(
         L, Cn, ldw, _STORE[D.dtype], _stream(),
     )
     _check_rc(rc, "rnn_tail")
-    _count("rnn_tail")
+    _count("rnn_tail", L)
     ROUTES["rnn_tail"] = routes
     return mi, mj, hh
 
@@ -275,7 +283,7 @@ def rnn_round_kernel(
         rowmin.data_ptr(), rowarg.data_ptr(), L, m, rows.shape[1], _STORE[W.dtype], _stream(),
     )
     _check_rc(rc, "rnn_round")
-    _count("rnn_round")
+    _count("rnn_round", L)
     return rowmin, rowarg
 
 
@@ -322,7 +330,7 @@ def cutree_snapshots_kernel(
         G, n, minN, ncand, _stream(),
     )
     _check_rc(rc, "cutree")
-    _count("cutree")
+    _count("cutree", G)
     ROUTES["cutree"] = routes
     return snaps
 

@@ -17,6 +17,11 @@ tail kernel) and the cut replay go through the hand-written kernels'
 wrappers (`ops/linkage_cuda.py`): on a CUDA tensor they launch the
 kernels, on a CPU tensor they run the plain loops.
 
+`opt_hclust` and `select_cut` take a leading lane axis, as the JAX package
+vmaps `opt_hclust` over a block's members, a group's folds and a bucket's
+blocks; `n_real`, `maxN` and `N_cluster` may differ by lane and are read
+on the device only.
+
 `gethclust`, the reference's legacy export (R/getrowColor.R:134-218),
 clusters a precomputed distance through serial Ward and the cut replay at
 every size, with the silhouette rule and the CH fallback only.
@@ -24,7 +29,7 @@ every size, with the silhouette rule and the CH fallback only.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +45,7 @@ from sharp_tpu_torch.ops.distance import (
 from sharp_tpu_torch.ops.linkage import (
     CutForest,
     LinkageResult,
+    counts_per_problem,
     real_heights_tail,
     resolve_linkage_backend,
     ward_linkage,
@@ -53,15 +59,17 @@ SIL_TIE_EPS = 1e-4
 
 
 class OptHclust(NamedTuple):
-    labels: torch.Tensor      # (n_pad,) int32 dense ids in [0, k); pads at nc_pad-1
-    k: torch.Tensor           # () int32 chosen cluster count
-    maxsil: torch.Tensor      # () f32 max median silhouette over the sweep
-    msil: torch.Tensor        # (ncand,) f32 per-candidate median silhouette
-    ch: torch.Tensor          # (ncand,) f32 per-candidate CH index
-    oind: torch.Tensor        # () int64 chosen candidate index
-    heights: torch.Tensor     # (n_pad - 1,) f32 merge heights
-    all_labels: torch.Tensor  # (ncand, n_pad) labels of every candidate cut
-    valid: torch.Tensor       # (ncand,) bool — candidate is testable
+    """One problem's selection, or L problems' with a leading lane axis."""
+
+    labels: torch.Tensor      # ([L,] n_pad) int32 dense ids in [0, k); pads at nc_pad-1
+    k: torch.Tensor           # ([L]) int32 chosen cluster count
+    maxsil: torch.Tensor      # ([L]) f32 max median silhouette over the sweep
+    msil: torch.Tensor        # ([L,] ncand) f32 per-candidate median silhouette
+    ch: torch.Tensor          # ([L,] ncand) f32 per-candidate CH index
+    oind: torch.Tensor        # ([L]) int64 chosen candidate index
+    heights: torch.Tensor     # ([L,] n_pad - 1) f32 merge heights
+    all_labels: torch.Tensor  # ([L,] ncand, n_pad) labels of every candidate cut
+    valid: torch.Tensor       # ([L,] ncand) bool — candidate is testable
 
 
 def _general_linkage(D: torch.Tensor, hmethod: str) -> LinkageResult:
@@ -89,13 +97,14 @@ def linkage(D: torch.Tensor, backend: str, hmethod: str) -> LinkageResult:
 
 
 def _middle_tied_argmax(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Index of the middle element among ties for the maximum
-    (R: tmp[ceiling(length(tmp)/2)], R/get_opt_hclust.R:162-168)."""
+    """Index of the middle element among ties for the maximum of each row
+    of x (..., ncand) (R: tmp[ceiling(length(tmp)/2)],
+    R/get_opt_hclust.R:162-168)."""
     xm = torch.where(valid, x, _NEG)
-    tied = (xm == xm.max()) & valid
-    target = (tied.sum() + 1) // 2
-    csum = torch.cumsum(tied.to(torch.int32), dim=0)
-    return torch.argmax((csum >= target).to(torch.int32))
+    tied = (xm == xm.amax(dim=-1, keepdim=True)) & valid
+    target = (tied.sum(dim=-1, keepdim=True) + 1) // 2
+    csum = torch.cumsum(tied.to(torch.int32), dim=-1)
+    return torch.argmax((csum >= target).to(torch.int32), dim=-1)
 
 
 def prep_distance(mat: torch.Tensor, real_mask: torch.Tensor, symmetric: bool):
@@ -117,86 +126,96 @@ def prep_distance(mat: torch.Tensor, real_mask: torch.Tensor, symmetric: bool):
     return D, D_real, feats_unit
 
 
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[l, idx[l]] for every lane l of x (L, m, ...) and idx (L,)."""
+    return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
 def select_cut(
     D_real: torch.Tensor,
     feats_unit: torch.Tensor,
     link: LinkageResult,
     cuts: CutForest,
     real_mask: torch.Tensor,
-    n_real: int,
-    maxN: int,
+    n_real,
+    maxN,
     *,
     minN: int,
     ncand: int,
     nc_pad: int,
     sil_thre: float,
     height_Ntimes: float,
-    N_cluster: Optional[int],
+    N_cluster=None,
     height_tail: int,
 ) -> OptHclust:
-    """Score every candidate cut of one problem and apply the rule chain."""
+    """Score every candidate cut of L lanes and apply the rule chain to
+    each: D_real (L, n, n), feats_unit (L, n, p), link and cuts with the
+    lane axis, real_mask (L, n) or (n,); n_real, maxN and N_cluster (None,
+    or the fixed cut) an int or one per lane (a tensor, read on the
+    device). The chain is `torch.where` over the lanes, as the JAX package's
+    vmapped `opt_hclust` has it: nothing is read back to the host."""
     dev = D_real.device
+    L = D_real.shape[0]
+    nr = counts_per_problem(n_real, L, dev).long()
     msil, ch = sweep_scores_nested(
-        D_real, feats_unit, link.merges, cuts.labels, real_mask, n_real, maxN,
+        D_real, feats_unit, link.merges, cuts.labels, real_mask, nr, maxN,
         minN=minN, ncand=ncand, nc_pad=nc_pad,
     )
     valid = cuts.valid
     heights = link.heights
-    m = heights.shape[0]
+    m = heights.shape[-1]
+    nr1 = nr[:, None]
 
     # --- rule 1: middle-tied max median silhouette, with the height-gap
     # re-rank of NEAR ties (the median saturates on near-duplicate points;
     # candidates within SIL_TIE_EPS of the max are ranked by the ratio of
     # the first refused merge height to the last accepted one) ---
     msil_v = torch.where(valid, msil, _NEG)
-    maxsil = msil_v.max()
-    near = valid & (msil_v >= maxsil - SIL_TIE_EPS)
-    n_near = int(near.sum())
+    maxsil = msil_v.amax(dim=-1)
+    near = valid & (msil_v >= maxsil[:, None] - SIL_TIE_EPS)
+    n_near = near.sum(dim=-1)
     ks_cand = minN + torch.arange(ncand, device=dev)
     midx = torch.arange(m, device=dev)
-    t_next = torch.clamp(n_real - ks_cand, 0, m - 1)
-    t_last = torch.clamp(n_real - ks_cand - 1, 0, m - 1)
-    h_next = heights[t_next]
-    h_last = torch.where(ks_cand >= n_real, 0.0, heights[t_last])
-    h_scale = torch.where(midx < n_real - 1, heights, 0.0).max()
+    h_next = torch.gather(heights, 1, torch.clamp(nr1 - ks_cand, 0, m - 1))
+    h_last = torch.where(
+        ks_cand >= nr1, 0.0, torch.gather(heights, 1, torch.clamp(nr1 - ks_cand - 1, 0, m - 1))
+    )
+    h_scale = torch.where(midx < nr1 - 1, heights, 0.0).amax(dim=-1, keepdim=True)
     gap_eps = torch.clamp_min(1e-6 * h_scale, 1e-12)
     gap_ratio = (h_next + gap_eps) / (torch.clamp_min(h_last, 0.0) + gap_eps)
-    if n_near > 1:
-        sil_oind = torch.argmax(torch.where(near, gap_ratio, _NEG))
-    else:
-        sil_oind = _middle_tied_argmax(msil, valid)
+    sil_oind = torch.where(
+        n_near > 1,
+        torch.argmax(torch.where(near, gap_ratio, _NEG), dim=-1),
+        _middle_tied_argmax(msil, valid),
+    )
 
     # --- rule 2: CH fallback ---
-    ch_oind = torch.argmax(torch.where(valid, ch, _NEG))
+    ch_oind = torch.argmax(torch.where(valid, ch, _NEG), dim=-1)
 
     # --- rule 3: height-gap fallback (only if CH picked the first candidate) ---
-    tailh, tail_valid = real_heights_tail(heights, n_real, tail=height_tail)
-    succ = tailh[1:]
-    pred = tailh[:-1]
-    flag = ((succ - pred) > (height_Ntimes - 1.0) * pred) & tail_valid[1:]
-    pind = torch.argmax(flag.to(torch.int32))
-    opth = 0.5 * (pred[pind] + succ[pind])
+    tailh, tail_valid = real_heights_tail(heights, nr, tail=height_tail)
+    succ = tailh[:, 1:]
+    pred = tailh[:, :-1]
+    flag = ((succ - pred) > (height_Ntimes - 1.0) * pred) & tail_valid[:, 1:]
+    pind = torch.argmax(flag.to(torch.int32), dim=-1)
+    opth = 0.5 * (_take(pred, pind) + _take(succ, pind))
     # clusters after cutting at height opth: n_real - #{real merges with h <= opth}
-    below = ((heights <= opth) & (midx < n_real - 1)).sum()
-    hg_oind = torch.clamp(n_real - below - minN, 0, ncand - 1)
+    below = ((heights <= opth[:, None]) & (midx < nr1 - 1)).sum(dim=-1)
+    hg_oind = torch.clamp(nr - below - minN, 0, ncand - 1)
 
-    use_ch = bool(maxsil <= sil_thre)
-    if use_ch:
-        hg_applies = int(ch_oind) == 0 and bool(flag.any())
-        oind = hg_oind if hg_applies else ch_oind
-    else:
-        oind = sil_oind
-    oind = int(oind)
+    use_ch = maxsil <= sil_thre
+    hg_applies = use_ch & (ch_oind == 0) & flag.any(dim=-1)
+    oind = torch.where(use_ch, torch.where(hg_applies, hg_oind, ch_oind), sil_oind)
     if N_cluster is not None:
-        oind = min(max(int(N_cluster) - minN, 0), ncand - 1)
+        oind = torch.clamp(counts_per_problem(N_cluster, L, dev).long() - minN, 0, ncand - 1)
 
     return OptHclust(
-        labels=cuts.labels[oind],
-        k=cuts.k[oind],
+        labels=_take(cuts.labels, oind),
+        k=_take(cuts.k, oind),
         maxsil=maxsil,
         msil=msil,
         ch=ch,
-        oind=torch.tensor(oind),
+        oind=oind,
         heights=heights,
         all_labels=cuts.labels,
         valid=valid,
@@ -206,8 +225,8 @@ def select_cut(
 def opt_hclust(
     mat: torch.Tensor,
     real_mask: torch.Tensor,
-    n_real: int,
-    maxN: int,
+    n_real,
+    maxN,
     *,
     symmetric: bool,
     minN: int,
@@ -215,29 +234,38 @@ def opt_hclust(
     nc_pad: int,
     sil_thre: float = 0.35,
     height_Ntimes: float = 2.0,
-    N_cluster: Optional[int] = None,
+    N_cluster=None,
     height_tail: int = 10,
     hmethod: str = "ward.D",
     linkage_backend: str = "auto",
 ) -> OptHclust:
-    """Cluster `mat` ((n_pad, p) features or (n_pad, n_pad) similarity).
+    """Cluster `mat` ((n_pad, p) features or (n_pad, n_pad) similarity), or
+    L problems at once with a leading lane axis (L, n_pad, .).
 
-    `n_real`, `maxN` and `N_cluster` are host integers (a 0-d tensor is
-    read once). With `N_cluster` the sweep still runs but the choice is
-    forced to that candidate (R/get_opt_hclust.R:90-107).
+    real_mask is (n_pad,) or one per lane (L, n_pad); `n_real`, `maxN`
+    and `N_cluster` are ints or one per lane (tensors, read on the device).
+    The L linkages go to one linkage call and one cut-replay launch, the
+    selection to one `select_cut`. With `N_cluster` the sweep still runs
+    but the choice is forced to that candidate (R/get_opt_hclust.R:90-107).
     """
-    n_real, maxN = int(n_real), int(maxN)
-    backend = resolve_linkage_backend(linkage_backend, real_mask.shape[0], hmethod)
+    squeeze = mat.dim() == 2
+    if squeeze:
+        mat = mat[None]
+    real_mask = real_mask.expand(mat.shape[0], real_mask.shape[-1])
+    backend = resolve_linkage_backend(linkage_backend, real_mask.shape[-1], hmethod)
     D, D_real, feats_unit = prep_distance(mat, real_mask, symmetric)
     link = linkage(D.contiguous(), backend, hmethod)
+    del D
+    nr = counts_per_problem(n_real, mat.shape[0], mat.device)
     cuts = cutree_multi_kernel(
-        link.merges, n_real, real_mask, maxN, minN=minN, ncand=ncand, nc_pad=nc_pad
+        link.merges, nr, real_mask, maxN, minN=minN, ncand=ncand, nc_pad=nc_pad
     )
-    return select_cut(
-        D_real, feats_unit, link, cuts, real_mask, n_real, maxN,
+    res = select_cut(
+        D_real, feats_unit, link, cuts, real_mask, nr, maxN,
         minN=minN, ncand=ncand, nc_pad=nc_pad, sil_thre=sil_thre,
         height_Ntimes=height_Ntimes, N_cluster=N_cluster, height_tail=height_tail,
     )
+    return OptHclust(*(x[0] for x in res)) if squeeze else res
 
 
 def _pad_problem(mat: np.ndarray, symmetric: bool):

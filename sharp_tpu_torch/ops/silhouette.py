@@ -1,11 +1,17 @@
-"""Median silhouette and Calinski-Harabasz over nested candidate cuts.
+"""Median silhouette and Calinski-Harabasz over candidate cuts.
 
 Counterpart of `sharp_tpu/ops/silhouette.py` (`masked_median`,
-`sweep_scores_nested`). The reference loops k = 2..40 calling
-`cluster::silhouette` and `clues::get_CH` per cut (R/get_opt_hclust.R:
-129-154). Conventions kept: the silhouette summary is the *median* of
-per-cell widths (R-style, mean of the two middles), singletons get width
-0, and CH uses the "1-corr" dispersion of clues::get_CH.
+`silhouette_median`, `ch_index`, `sweep_scores`, `sweep_scores_nested`).
+The reference loops k = 2..40 calling `cluster::silhouette` and
+`clues::get_CH` per cut (R/get_opt_hclust.R:129-154). Conventions kept: the
+silhouette summary is the *median* of per-cell widths (R-style, mean of the
+two middles), singletons get width 0, and CH uses the "1-corr" dispersion
+of clues::get_CH.
+
+`sweep_scores` scores each cut of one problem on its own, as the
+reference does; it is the reference of `sweep_scores_nested`, which scores
+the nested cuts of L problems (lanes) at once and is what the selection
+runs. Own-cluster quantities are gathers, not one-hot contractions.
 """
 
 from __future__ import annotations
@@ -13,15 +19,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from sharp_tpu_torch.ops.linkage import counts_per_problem
+
 _INF = float("inf")
+# the candidate scoring's (lanes, ncand, n, V) temporaries are built this
+# many bytes of lanes at a time
+SWEEP_CHUNK_BYTES = 512 << 20
 
 
-def masked_median(x: torch.Tensor, mask: torch.Tensor, n_valid: int) -> torch.Tensor:
-    """Median of x (..., n) over entries where mask, R-style (mean of two middles)."""
+def masked_median(x: torch.Tensor, mask: torch.Tensor, n_valid) -> torch.Tensor:
+    """Median of x (..., n) over entries where mask, R-style (mean of two
+    middles); n_valid an int or a tensor of x's leading shape (a count per
+    row, read on the device)."""
     xs = torch.sort(torch.where(mask, x, _INF), dim=-1).values
-    lo = xs[..., max((n_valid - 1) // 2, 0)]
-    hi = xs[..., max(n_valid // 2, 0)]
-    return 0.5 * (lo + hi)
+    if not isinstance(n_valid, torch.Tensor):
+        n_valid = torch.full((), n_valid, device=x.device)
+    nv = n_valid.expand(x.shape[:-1]).unsqueeze(-1)
+    lo = torch.gather(xs, -1, torch.clamp_min((nv - 1) // 2, 0))
+    hi = torch.gather(xs, -1, torch.clamp_min(nv // 2, 0))
+    return (0.5 * (lo + hi)).squeeze(-1)
 
 
 def _unit(v: torch.Tensor) -> torch.Tensor:
@@ -30,95 +46,192 @@ def _unit(v: torch.Tensor) -> torch.Tensor:
     return vc * torch.rsqrt((vc * vc).sum(dim=-1, keepdim=True) + 1e-12)
 
 
+def _onehot(labels: torch.Tensor, real_mask: torch.Tensor, nc_pad: int) -> torch.Tensor:
+    return F.one_hot(labels.long(), nc_pad).to(torch.float32) * real_mask[:, None].to(torch.float32)
+
+
+def silhouette_median(D_real, labels, real_mask, n_real, nc_pad: int) -> torch.Tensor:
+    """Median silhouette width of one labelling of one problem. D_real (n,
+    n) with pad rows/cols zeroed and a zero diagonal; labels (n,) dense ids
+    in [0, k), padded cells at nc_pad-1."""
+    rm = real_mask.to(torch.float32)
+    oh = _onehot(labels, real_mask, nc_pad)
+    counts = oh.sum(dim=0)
+    sums = D_real @ oh                                         # (n, nc_pad)
+    own = labels.long()
+    own_count = counts[own] * rm
+    own_sum = sums.gather(1, own[:, None])[:, 0] * rm
+    a = own_sum / torch.clamp_min(own_count - 1.0, 1.0)
+    mean_other = sums / torch.clamp_min(counts[None, :], 1.0)
+    # exclude own cluster, empty clusters, and the garbage pad slot
+    slot = torch.arange(nc_pad, device=D_real.device)[None, :]
+    excl = (slot == own[:, None]) | (counts[None, :] < 0.5) | (slot == nc_pad - 1)
+    b = torch.where(excl, _INF, mean_other).amin(dim=1)
+    s = (b - a) / torch.clamp_min(torch.maximum(a, b), 1e-12)
+    s = torch.where(own_count <= 1.5, 0.0, s)                  # singleton convention
+    s = torch.where(torch.isfinite(b), s, 0.0)                 # k == 1 edge
+    return masked_median(s, real_mask, n_real)
+
+
+def ch_index(feats_unit, labels, real_mask, n_real, k, nc_pad: int) -> torch.Tensor:
+    """Calinski-Harabasz with the 1-corr dispersion (clues::get_CH) of one
+    labelling of one problem; feats_unit (n, p) centred unit rows."""
+    rm = real_mask.to(torch.float32)
+    oh = _onehot(labels, real_mask, nc_pad)
+    counts = oh.sum(dim=0)
+    cent_u = _unit((oh.T @ feats_unit) / torch.clamp_min(counts[:, None], 1.0))
+    # within: sum over cells of (1 - corr(x_i, centroid_own))
+    corr_own = (feats_unit @ cent_u.T).gather(1, labels.long()[:, None])[:, 0]
+    W = torch.where(real_mask, 1.0 - corr_own, 0.0).sum()
+    # between: sum over clusters of n_c * (1 - corr(centroid_c, global mean))
+    n_real = torch.as_tensor(n_real, device=feats_unit.device)
+    g = (feats_unit * rm[:, None]).sum(dim=0) / torch.clamp_min(n_real, 1)
+    corr_cg = (cent_u * _unit(g[None, :])[0][None, :]).sum(dim=-1)
+    slot_valid = (counts > 0.5) & (torch.arange(nc_pad, device=counts.device) != nc_pad - 1)
+    B = torch.where(slot_valid, counts * (1.0 - corr_cg), 0.0).sum()
+    k = torch.as_tensor(k, device=feats_unit.device)
+    ch = (B / torch.clamp_min(k - 1.0, 1.0)) / torch.clamp_min(
+        W / torch.clamp_min(n_real - k.to(torch.float32), 1.0), 1e-12
+    )
+    return torch.where((k > 1) & (n_real > k), ch, 0.0)
+
+
+def sweep_scores(D_real, feats_unit, labels_all, ks, real_mask, n_real, *, nc_pad: int):
+    """Median silhouette + CH of every candidate cut of one problem, each
+    cut scored on its own. labels_all (ncand, n), ks (ncand,). Returns
+    (msil (ncand,), ch (ncand,))."""
+    msil = [silhouette_median(D_real, lab, real_mask, n_real, nc_pad) for lab in labels_all]
+    ch = [ch_index(feats_unit, lab, real_mask, n_real, k, nc_pad) for lab, k in zip(labels_all, ks)]
+    return torch.stack(msil), torch.stack(ch)
+
+
+def sweep_bytes(lanes: int, n: int, ncand: int, nc_pad: int) -> int:
+    """Device bytes `sweep_scores_nested` holds for `lanes` lanes at n_pad
+    n besides its inputs and the SWEEP_CHUNK_BYTES of its scoring: four (n,
+    V) float32 node tables and three (ncand, n) per-cut rows a lane, V =
+    nc_pad + ncand."""
+    V = nc_pad + ncand
+    return lanes * (4 * n * V * 4 + 3 * ncand * n * 8)
+
+
 def sweep_scores_nested(
-    D_real: torch.Tensor,       # (n, n) pad rows/cols zeroed, zero diagonal
-    feats_unit: torch.Tensor,   # (n, p) centered unit rows
-    merges: torch.Tensor,       # (n_pad - 1, 2) linkage merge sequence
-    labels_all: torch.Tensor,   # (ncand, n) dense per-cut labels (cutree)
-    real_mask: torch.Tensor,
-    n_real: int,
-    maxN: int,
+    D_real: torch.Tensor,       # ([L,] n, n) pad rows/cols zeroed, zero diagonal
+    feats_unit: torch.Tensor,   # ([L,] n, p) centered unit rows
+    merges: torch.Tensor,       # ([L,] n_pad - 1, 2) linkage merge sequences
+    labels_all: torch.Tensor,   # ([L,] ncand, n) dense per-cut labels (cutree)
+    real_mask: torch.Tensor,    # ([L,] n) bool, or (n,) for every lane
+    n_real,                     # int or (L,) tensor
+    maxN,                       # int or (L,) tensor
     *,
     minN: int,
     ncand: int,
     nc_pad: int,
 ):
-    """Median silhouette + CH for every candidate cut, using cut nesting.
+    """Median silhouette + CH for every candidate cut of L lanes, using cut
+    nesting. Returns (msil ([L,] ncand), ch ([L,] ncand)).
 
-    Cuts k = minN..minN+ncand-1 are nested, so the distinct clusters of the
-    sweep are the <= nc_pad clusters of the finest cut plus one new node per
-    coarser cut: the per-cluster distance sums are one (n, n) x (n, V)
-    product plus ncand column additions, V = nc_pad + ncand. The JAX
-    package's `lax.scan` over candidates is a Python loop here.
-    Returns (msil (ncand,), ch (ncand,)).
+    Cuts k = minN..minN+ncand-1 are nested, so the distinct clusters of a
+    lane's sweep are the <= nc_pad clusters of its finest cut plus one new
+    node per coarser cut: the per-cluster distance sums are one (n, n) x
+    (n, V) product plus ncand column additions, V = nc_pad + ncand. The JAX
+    package's `lax.scan` over candidates (vmapped over lanes) is a Python
+    loop over the static c = ncand-1..0 here; each step gathers every
+    lane's merge, own columns and node rows on the device, so the sweep
+    reads nothing back to the host. `n_real` and `maxN` are per lane.
     """
-    n = D_real.shape[0]
+    squeeze = D_real.dim() == 2
+    if squeeze:
+        D_real, feats_unit, merges, labels_all = (x[None] for x in (D_real, feats_unit, merges, labels_all))
+    L, n = D_real.shape[0], D_real.shape[-1]
     V = nc_pad + ncand
     dev = D_real.device
+    real_mask = real_mask.expand(L, n)
     rm = real_mask.to(torch.float32)
+    nr = counts_per_problem(n_real, L, dev).long()
+    mx = counts_per_problem(maxN, L, dev).long()
+    lanes = torch.arange(L, device=dev)
 
     # nc_pad - 1 caps representable cuts: k clusters need dense ids
     # 0..k-1 clear of the reserved garbage slot nc_pad - 1
-    kmax_eff = min(maxN, n_real - 1, minN + ncand - 1, nc_pad - 1)
-    c_fine = min(max(kmax_eff - minN, 0), ncand - 1)
-    own = labels_all[c_fine].long()
-    oh_fine = F.one_hot(own, V).to(torch.float32) * rm[:, None]
-    counts = oh_fine.sum(dim=0)                    # (V,)
-    sums = D_real @ oh_fine                        # (n, V)
-    centsum = oh_fine.T @ feats_unit               # (V, p)
+    kmax_eff = torch.clamp_max(torch.minimum(mx, nr - 1), min(minN + ncand - 1, nc_pad - 1))
+    c_fine = torch.clamp(kmax_eff - minN, 0, ncand - 1)
+    own = labels_all[lanes, c_fine].long()                     # (L, n)
+    oh_fine = F.one_hot(own, V).to(torch.float32) * rm[..., None]
+    counts = oh_fine.sum(dim=1)                                # (L, V)
+    sums = D_real @ oh_fine                                    # (L, n, V)
+    centsum = oh_fine.transpose(1, 2) @ feats_unit             # (L, V, p)
+    del oh_fine
     alive = counts > 0.5
 
     colv = torch.arange(V, device=dev)
-    mg = merges.long().cpu()
+    m = merges.shape[1]
     own_all = [None] * ncand
     alive_all = [None] * ncand
     for c in range(ncand - 1, -1, -1):
-        if c < c_fine:
-            k = minN + c
-            t = min(max(n_real - k - 1, 0), merges.shape[0] - 1)
-            i, j = int(mg[t, 0]), int(mg[t, 1])
-            coli = own[i]
-            colj = own[j]
-            newslot = nc_pad + c
-            sums[:, newslot] = sums[:, coli] + sums[:, colj]
-            counts[newslot] = counts[coli] + counts[colj]
-            centsum[newslot] = centsum[coli] + centsum[colj]
-            own = torch.where((own == coli) | (own == colj), newslot, own)
-            alive = (alive & (colv != coli) & (colv != colj)) | (colv == newslot)
+        apply = c < c_fine                                     # (L,)
+        t = torch.clamp(nr - (minN + c) - 1, 0, m - 1)
+        ij = merges[lanes, t].long()                           # (L, 2)
+        coli = own[lanes, ij[:, 0]]
+        colj = own[lanes, ij[:, 1]]
+        newslot = nc_pad + c
+        sums[:, :, newslot] = torch.where(
+            apply[:, None], sums[lanes, :, coli] + sums[lanes, :, colj], sums[:, :, newslot]
+        )
+        counts[:, newslot] = torch.where(apply, counts[lanes, coli] + counts[lanes, colj], counts[:, newslot])
+        centsum[:, newslot] = torch.where(
+            apply[:, None], centsum[lanes, coli] + centsum[lanes, colj], centsum[:, newslot]
+        )
+        merged = (own == coli[:, None]) | (own == colj[:, None])
+        own = torch.where(apply[:, None] & merged, newslot, own)
+        gone = (colv[None, :] == coli[:, None]) | (colv[None, :] == colj[:, None])
+        alive = torch.where(apply[:, None], (alive & ~gone) | (colv == newslot)[None, :], alive)
         own_all[c] = own
         alive_all[c] = alive
-    own_all = torch.stack(own_all)                 # (ncand, n)
-    alive_all = torch.stack(alive_all)             # (ncand, V)
+    own_all = torch.stack(own_all, dim=1)                      # (L, ncand, n)
+    alive_all = torch.stack(alive_all, dim=1)                  # (L, ncand, V)
 
     # cut-independent node quantities
-    cent_u = _unit(centsum / torch.clamp_min(counts[:, None], 1.0))   # (V, p)
-    FC = feats_unit @ cent_u.T                                        # (n, V)
-    g = (feats_unit * rm[:, None]).sum(dim=0) / max(n_real, 1)
-    g_u = _unit(g[None, :])[0]
-    corr_cg = (cent_u * g_u[None, :]).sum(dim=-1)                     # (V,)
-    mean_node = sums / torch.clamp_min(counts, 1.0)[None, :]          # (n, V)
+    cent_u = _unit(centsum / torch.clamp_min(counts[..., None], 1.0))  # (L, V, p)
+    FC = feats_unit @ cent_u.transpose(1, 2)                   # (L, n, V)
+    g = (feats_unit * rm[..., None]).sum(dim=1) / torch.clamp_min(nr, 1)[:, None]
+    g_u = _unit(g)
+    corr_cg = (cent_u * g_u[:, None, :]).sum(dim=-1)           # (L, V)
+    mean_node = sums / torch.clamp_min(counts, 1.0)[:, None, :]  # (L, n, V)
     nodes_ok = counts > 0.5
+    ks = (minN + torch.arange(ncand, device=dev)).to(torch.float32)
 
-    oh = F.one_hot(own_all, V).to(torch.float32) * rm[None, :, None]  # (ncand, n, V)
-    own_sum = (oh * sums[None]).sum(dim=-1)
-    own_count = (oh * counts[None, None, :]).sum(dim=-1)
-    a = own_sum / torch.clamp_min(own_count - 1.0, 1.0)
-    excl = ~alive_all[:, None, :] | (oh > 0.5) | ~nodes_ok[None, None, :]
-    b = torch.where(excl, _INF, mean_node[None]).amin(dim=-1)
-    s = (b - a) / torch.clamp_min(torch.maximum(a, b), 1e-12)
-    s = torch.where(own_count <= 1.5, 0.0, s)
-    s = torch.where(torch.isfinite(b), s, 0.0)
+    msil, ch = [], []
+    chunk = max(1, SWEEP_CHUNK_BYTES // (8 * ncand * n * V))
+    for l0 in range(0, L, chunk):
+        sl = slice(l0, l0 + chunk)
+        own_c = own_all[sl]
+        lc = own_c.shape[0]
+        rmc = rm[sl, None, :]
 
-    corr_own = (oh * FC[None]).sum(dim=-1)
-    W = torch.where(real_mask[None, :], 1.0 - corr_own, 0.0).sum(dim=-1)
-    Bv = torch.where(
-        alive_all & nodes_ok[None, :], counts[None, :] * (1.0 - corr_cg[None, :]), 0.0
-    ).sum(dim=-1)
-    k = (minN + torch.arange(ncand, device=dev)).to(torch.float32)
-    denom_ok = (k > 1) & (n_real > k)
-    ch = (Bv / torch.clamp_min(k - 1.0, 1.0)) / torch.clamp_min(
-        W / torch.clamp_min(n_real - k, 1.0), 1e-12
-    )
-    ch = torch.where(denom_ok, ch, 0.0)
-    msil = masked_median(s, real_mask[None, :], n_real)
-    return msil, ch
+        def at_own(node_table):                                # (lc, n, V) -> (lc, ncand, n)
+            return node_table[:, None].expand(lc, ncand, n, V).gather(3, own_c[..., None])[..., 0]
+
+        own_sum = at_own(sums[sl]) * rmc
+        own_count = counts[sl, None, :].expand(lc, ncand, V).gather(2, own_c) * rmc
+        a = own_sum / torch.clamp_min(own_count - 1.0, 1.0)
+        excl = (~(alive_all[sl] & nodes_ok[sl, None, :]))[:, :, None, :] | (colv == own_c[..., None])
+        b = torch.where(excl, _INF, mean_node[sl, None]).amin(dim=-1)
+        del excl
+        s = (b - a) / torch.clamp_min(torch.maximum(a, b), 1e-12)
+        s = torch.where(own_count <= 1.5, 0.0, s)
+        s = torch.where(torch.isfinite(b), s, 0.0)
+
+        corr_own = at_own(FC[sl])
+        W = torch.where(real_mask[sl, None, :], 1.0 - corr_own, 0.0).sum(dim=-1)
+        Bv = torch.where(
+            alive_all[sl] & nodes_ok[sl, None, :],
+            counts[sl, None, :] * (1.0 - corr_cg[sl, None, :]), 0.0,
+        ).sum(dim=-1)
+        nrc = nr[sl, None]
+        chc = (Bv / torch.clamp_min(ks - 1.0, 1.0)) / torch.clamp_min(
+            W / torch.clamp_min(nrc - ks, 1.0), 1e-12
+        )
+        ch.append(torch.where((ks > 1) & (nrc > ks), chc, 0.0))
+        msil.append(masked_median(s, real_mask[sl, None, :], nrc))
+    msil, ch = torch.cat(msil), torch.cat(ch)
+    return (msil[0], ch[0]) if squeeze else (msil, ch)

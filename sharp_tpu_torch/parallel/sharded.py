@@ -16,17 +16,20 @@ the device runs the current one.
 
 On a mesh (`parallel/mesh.py`) each data shard takes a contiguous slice of
 the folds and runs the same grouped loop on its own host thread, under a
-stream of its own device: the fold program reads the host a few hundred
-times per selection, so shards without threads of their own would run in
-turn. With an "ens" axis, each ens shard clusters its contiguous group of
-members against its column slice of the RP matrices, and the data shard
-gathers the members in order and runs wMetaC once per fold. Unlike the
+stream of its own device: the host launches every operation of the fold
+program and reads the ladder's progress once a round, so shards without
+threads of their own would run in turn. With an "ens" axis, each ens shard
+clusters its contiguous group of members against its column slice of the
+RP matrices, and the data shard gathers the members in order and runs
+wMetaC once for the group. Unlike the
 JAX package's SPMD program, the shards need no dummy folds (threads take
 unequal slices) and the sparse feed is not densified on the host.
 
 `indN_cluster` (a fixed cluster count per member) holds for a call of one
-fold only, as in the JAX package: the grouped and sharded passes of two or
-more folds drop it (`sharp_tpu/parallel/sharded.py:31-37`).
+dense fold only, as in the JAX package: its grouped and sharded passes
+(`sharp_tpu/parallel/sharded.py:31-37`), which a call of two or more folds
+and a `SparseBlock` of one fold take (`sharp_tpu/parallel/streaming.py:
+70-94`), drop it.
 """
 
 from __future__ import annotations
@@ -42,7 +45,9 @@ from sharp_tpu_torch.config import SharpConfig
 from sharp_tpu_torch.core.block import BlockEnsembleResult, cluster_block_ensemble
 from sharp_tpu_torch.core.fold import fold_program, fold_static_args, fold_summary
 from sharp_tpu_torch.core.large import summaries_to_host
+from sharp_tpu_torch.ops.linkage import counts_per_problem
 from sharp_tpu_torch.ops.linkage_cuda import shard_scope
+from sharp_tpu_torch.ops.silhouette import SWEEP_CHUNK_BYTES, sweep_bytes
 from sharp_tpu_torch.utils.timers import log
 
 _CPU_BUDGET = 8 << 30
@@ -66,26 +71,36 @@ def memory_budget_bytes(devices) -> int:
 
 
 def auto_group(
-    block_pad: int, genes: int, K: int, device, sparse: bool = False, cap: int = 16
+    block_pad: int, genes: int, K: int, device, sparse: bool = False, cap: int = 16,
+    ncand: int = 39, nc_pad: int = 48,
 ) -> int:
     """Fold-group size that fits the memory budget, at most `cap`.
 
     Per fold, a group holds K lanes of the linkage working set (the
     distance matrix, its masked copy for the silhouettes and up to three
-    matrices inside a ladder round: 5 x K x block_pad^2 float32) and the
-    dense fold: with the dense feed, the fold and its log2 copy on the
-    device plus the host-staged copy (3 x block_pad x genes float32); with
-    the sparse feed, the fold densified on the device with log2 applied
-    and the scatter's working set (2 x block_pad x genes float32).
-    `device` as in `memory_budget_bytes`; K the members one device holds.
+    matrices inside a ladder round: 5 x K x block_pad^2 float32), K lanes
+    of the candidate sweep's tables (`ops.silhouette.sweep_bytes`, with
+    ncand candidates and nc_pad cluster slots), and the dense fold: with
+    the dense feed, the fold and its log2 copy on the device plus the
+    host-staged copy (3 x block_pad x genes float32); with the sparse feed,
+    the fold densified on the device with log2 applied and the scatter's
+    working set (2 x block_pad x genes float32). The sweep's chunked
+    scoring (`SWEEP_CHUNK_BYTES`) is held once per group. `device` as in
+    `memory_budget_bytes`; K the members one device holds.
     """
     dense_copies = 2 if sparse else 3
-    fold_bytes = dense_copies * block_pad * genes * 4 + 5 * K * block_pad * block_pad * 4
-    fit = memory_budget_bytes(device) // fold_bytes
+    fold_bytes = (dense_copies * block_pad * genes * 4 + 5 * K * block_pad * block_pad * 4
+                  + sweep_bytes(K, block_pad, ncand, nc_pad))
+    fit = (memory_budget_bytes(device) - SWEEP_CHUNK_BYTES) // fold_bytes
     for g in (16, 8, 4, 2):
         if fit >= g and cap >= g:
             return g
     return 1
+
+
+def _sweep_shape(cfg: SharpConfig) -> dict:
+    static = fold_static_args(cfg)
+    return dict(ncand=static["ncand"], nc_pad=static["nc_pad"])
 
 
 def _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev):
@@ -197,10 +212,14 @@ def process_folds_grouped(
     T = len(sizes)
     sparse, rows = _check_feed(X, rows)
     if group is None:
-        group = auto_group(block_pad, X.shape[1], cfg.ensize_K, dev, sparse=sparse)
+        group = auto_group(block_pad, X.shape[1], cfg.ensize_K, dev, sparse=sparse,
+                           **_sweep_shape(cfg))
         log(f"fold group auto-sized to {group}")
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
-    indN = cfg.indN_cluster if T == 1 else None
+    # the JAX package keeps indN_cluster only where one dense fold takes
+    # its one-fold program (`process_fold`); its sparse feed and its passes
+    # of several folds drop it
+    indN = cfg.indN_cluster if T == 1 and not sparse else None
     return _fold_groups(X, list(sizes), offsets, block_pad, R_all, cfg, logf, dev,
                         max(1, min(group, T)), rows, wire_dtype, indN)
 
@@ -231,6 +250,7 @@ def _ens_program(d, devs, streams, R_locals, pool, static, K_local):
 
     def run(Xg, masks, gsizes, logf, indN):
         home_stream = torch.cuda.current_stream(home) if home.type == "cuda" else None
+        nreal = counts_per_problem(gsizes, len(gsizes), home)   # once, for every shard
 
         def shard(e):
             dev = devs[e]
@@ -238,7 +258,7 @@ def _ens_program(d, devs, streams, R_locals, pool, static, K_local):
                 if home_stream is not None and dev.type == "cuda":
                     torch.cuda.current_stream().wait_stream(home_stream)
                 blk = cluster_block_ensemble(
-                    Xg.to(dev), masks.to(dev), gsizes, R_locals[e], static["maxN"], logf,
+                    Xg.to(dev), masks.to(dev), nreal.to(dev), R_locals[e], static["maxN"], logf,
                     K=K_local, indN_cluster=indN, **blk_static,
                 )
                 if dev.type == "cuda":
@@ -255,7 +275,7 @@ def _ens_program(d, devs, streams, R_locals, pool, static, K_local):
             maxsil=torch.cat([b.maxsil.to(home) for b in parts], dim=1),
             mean_proj=torch.stack([b.mean_proj.to(home) for b in parts]).mean(dim=0),
         )
-        return fold_summary(blk, masks, gsizes, **sum_static)
+        return fold_summary(blk, masks, nreal, **sum_static)
 
     return run
 
@@ -300,7 +320,7 @@ def process_folds_sharded(
 
         load_kernels()   # built once, before the shard threads start
     if group is None:
-        group = auto_group(block_pad, X.shape[1], K_local, flat, sparse=sparse)
+        group = auto_group(block_pad, X.shape[1], K_local, flat, sparse=sparse, **_sweep_shape(cfg))
         log(f"fold group auto-sized to {group} per shard")
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     static = fold_static_args(cfg)

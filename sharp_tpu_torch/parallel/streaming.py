@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from sharp_tpu_torch.config import SharpConfig, pad_dim, resolve_config
-from sharp_tpu_torch.core.large import fold_sizes, fuse_folds
+from sharp_tpu_torch.core.large import fold_sizes, fuse_blocks
 from sharp_tpu_torch.core.smetac import smetac, smetac_range
 from sharp_tpu_torch.io.blocks import BlockStore
 from sharp_tpu_torch.ops.rp import ensemble_rp_matrix
@@ -217,8 +217,9 @@ def sharp_unlimited(
     to `<dir>/.sharp_manifest` unless `manifest_dir` says otherwise, and
     finished blocks are reused when `resume`). A one-block list runs
     `sharp()` on the block. The sMetaC fuses of `fuse_batch` blocks are
-    collected and run one after another, and their manifests written then
-    (results do not depend on it).
+    collected and run together (`core/large.fuse_blocks`: one call for the
+    blocks of one shape), and their manifests written then (results do not
+    depend on it).
     `sparse_feed` (default: on for SBLK files and scipy blocks) ships
     blocks to the device as CSR triplets and densifies there, with labels
     identical to the host densify (`False`); `wire_dtype="bfloat16"` also
@@ -347,8 +348,8 @@ def sharp_unlimited(
     def fuse_pending():
         if not pending:
             return
-        for i, frs in pending:
-            fres = fuse_folds(frs, cfg, device=dev)
+        fused = fuse_blocks([frs for _, frs in pending], cfg, device=dev)
+        for (i, frs), fres in zip(pending, fused):
             labels, cents, counts, x0c = _block_summary(fres)
             viE_b = _block_view_features(frs, R_view) if cfg.forview else None
             mp = manifest_path(i)

@@ -169,12 +169,14 @@ def test_smetac_second_best_override_ranks_valid_candidates(monkeypatch):
     all_labels = torch.arange(ncand, dtype=torch.int32)[:, None].repeat(1, NC_pad)
 
     def fake_opt_hclust(*a, **kw):
-        return OptHclust(
+        # smetac clusters its blocks as lanes of one opt_hclust call: one lane here
+        one = OptHclust(
             labels=all_labels[0], k=torch.tensor(2), maxsil=torch.tensor(0.9),
             msil=torch.tensor([0.9, 0.2, 0.1, 0.8, 0.0]), ch=torch.zeros(ncand),
             oind=torch.tensor(0), heights=torch.zeros(NC_pad - 1),
             all_labels=all_labels, valid=torch.tensor([True, True, True, False, False]),
         )
+        return OptHclust(*(x[None] for x in one))
 
     monkeypatch.setattr(tsmetac, "opt_hclust", fake_opt_hclust)
     cents = torch.from_numpy(np.random.default_rng(0).normal(size=(NC_pad, 16)).astype(np.float32))

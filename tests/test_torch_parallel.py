@@ -219,22 +219,24 @@ def test_two_gloo_processes_equal_one(tmp_path, mode, same_rp):
 
 def test_launch_counts_and_routes_hold_under_threads():
     """The shards count their launches from several threads: with a switch
-    interval of 1 us and more threads than cores, no count is lost,
-    SHARD_LAUNCHES keeps each shard's own, and each thread reads its own
-    ROUTES."""
+    interval of 1 us and more threads than cores, no count of launches or
+    of problems is lost, SHARD_LAUNCHES and SHARD_PROBLEMS keep each
+    shard's own, and each thread reads its own ROUTES."""
     import threading
 
     from sharp_tpu_torch.ops import linkage_cuda as lc
 
     n_threads, per = 4 * (os.cpu_count() or 1), 2000
     before = lc.LAUNCHES["cutree"]
+    before_problems = lc.PROBLEMS["cutree"]
     lc.SHARD_LAUNCHES.clear()
+    lc.SHARD_PROBLEMS.clear()
     mine = {}
 
     def work(t):
         with lc.shard_scope((t, 0)):
             for _ in range(per):
-                lc._count("cutree")
+                lc._count("cutree", 3)
                 lc.ROUTES["cutree"] = t
                 if lc.ROUTES["cutree"] != t:
                     mine[t] = "overwritten"
@@ -252,6 +254,9 @@ def test_launch_counts_and_routes_hold_under_threads():
     finally:
         sys.setswitchinterval(interval)
     assert lc.LAUNCHES["cutree"] - before == n_threads * per
+    assert lc.PROBLEMS["cutree"] - before_problems == 3 * n_threads * per
     assert {k: v["cutree"] for k, v in lc.SHARD_LAUNCHES.items()} == {(t, 0): per for t in range(n_threads)}
+    assert {k: v["cutree"] for k, v in lc.SHARD_PROBLEMS.items()} == {(t, 0): 3 * per for t in range(n_threads)}
     assert mine == {t: t for t in range(n_threads)}
     lc.SHARD_LAUNCHES.clear()
+    lc.SHARD_PROBLEMS.clear()

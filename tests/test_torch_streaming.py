@@ -271,6 +271,41 @@ def test_unlimited_single_matrix_and_single_block_degrade(tmp_path, same_rp):
     assert ari(y1, one.pred_clusters) >= 0.9 and one.N_pred_cluster >= 4
 
 
+def test_indN_cluster_dropped_for_a_one_fold_sblk_block_as_in_jax(tmp_path, same_rp, monkeypatch):
+    """The JAX package keeps `indN_cluster` for a block of one fold only
+    when it is dense (its one-fold program, `process_fold`); a SparseBlock
+    of one fold takes its grouped pass, which drops it
+    (sharp_tpu/parallel/streaming.py:70-94, sharded.py:31-37). One SBLK
+    block of 240 cells (one fold) with indN_cluster=6, through the sparse
+    feed and through the host densify: per-member cluster counts and labels
+    identical to the JAX package's, the fixed count only on the dense
+    feed."""
+    X, _ = make_tpm_like(n_cells=240, n_genes=300, n_types=4, seed=8)
+    d = str(tmp_path / "one_fold")
+    save_blocks(d, [X], fmt="sblk")
+    kw = dict(rN_seed=5, ensize_K=4, partition_ncells=250, indN_cluster=6, resume=False)
+
+    def record(mod):
+        seen, real = [], mod._fold_pass
+
+        def spy(*a, **k):
+            frs = real(*a, **k)
+            seen.append(np.stack([fr["k_per"] for fr in frs]))
+            return frs
+
+        monkeypatch.setattr(mod, "_fold_pass", spy)
+        return seen
+
+    jk, tk = record(jstream), record(streaming)
+    for sparse_feed in (True, False):
+        ref = jstream.sharp_unlimited(d, sparse_feed=sparse_feed, manifest_dir=str(tmp_path / "jm"), **kw)
+        got = sharp_unlimited(d, sparse_feed=sparse_feed, manifest_dir=str(tmp_path / "tm"), device="cpu", **kw)
+        np.testing.assert_array_equal(got.pred_clusters, ref.pred_clusters)
+    np.testing.assert_array_equal(np.stack(tk), np.stack(jk))
+    sparse_k, dense_k = jk
+    assert (dense_k == 6).all() and not (sparse_k == 6).all(), (sparse_k, dense_k)
+
+
 def test_unlimited_forview_shapes(blocked_data, same_rp):
     X, y, blocks = blocked_data
     res = sharp_unlimited(blocks, forview=True, device="cpu", **KW)
