@@ -127,14 +127,30 @@ Phases, in order; any failure raises and the script exits non-zero:
               (b)'s; both report its cluster count; ARI >= 0.95 with at most
               57 clusters; each process launched every kernel its two blocks'
               folds need, as in (a) and (b), with its fuses besides.
+  9. bench    bench_torch.py's compute path in this process, after phase 8
+              (c), at its full size: 1,306,127 cells x 27,998 genes in 26
+              blocks generated on the card, 654 folds in 41 groups of 16 at
+              n_pad 2048, the per-block sMetaC fuses in one batched call and
+              the global fuse over the 26 block summaries. Gates: the
+              bench's own (the ladder and serial Ward give valid merge
+              sequences on the card before timing; ARI >= 0.80 and 12-57
+              clusters for 38 planted types); in every fold group of the
+              timed fold pass the round kernel at each ladder level (2048,
+              1024, 512), the tail kernel once and serial Ward once for the
+              group's 16 wMetaC problems; a cut replay per linkage in every
+              timed part; the global fuse's sMetaC tensors on the card and a
+              linkage kernel launched in its window. Prints the timed wall
+              and its parts (fold pass, block fuse, global fuse), the
+              min/median/max per fold group and per block, the fuse shapes
+              and the launches.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it holds the card's name and power limit as nvidia-smi prints them,
 and the one before that the kernels' JSON record: per kernel its launches
 in the run of phase 6 (b) and the problems they took (and, under
 launches_by_path, its launches in the flagship run
-of phase 5 (b), in phase 7 (a)'s gethclust calls and in phase 8 (b), the
-flagship block over two shards), its largest difference from the plain version, its time
+of phase 5 (b), in phase 7 (a)'s gethclust calls, in phase 8 (b), the
+flagship block over two shards, and in phase 9's whole run), its largest difference from the plain version, its time
 per call (and device_ms, the kernel alone), the plain version's, its bound
 and what bounds it. No single PyTorch call
 computes any of these functions, so library_ms is null. The full record
@@ -1296,39 +1312,8 @@ def phase_analysis(dev, record, Xbig, flagship):
 # genes, 38 planted types, 2,048 nonzero genes per cell (1,536 of the
 # cell's type's top genes and a random tail), CPM-scaled; type means from
 # seed 123, block b from seed 1000 + b. The generator is the bench's
-# (bench.py, `_api_type_means`, `_api_block_y`, `_api_gen_block`).
+# (`sharp_tpu_torch.io.benchdata`, which bench_torch.py uses too).
 API_GENES, API_TYPES, API_KEEP, API_BLOCK, API_BLOCKS = 27998, 38, 2048, 50000, 4
-
-
-def _api_type_means(G, n_types, keep):
-    grng = np.random.default_rng(123)
-    base = np.exp(1.0 + grng.standard_normal(G)).astype(np.float32)
-    de = grng.uniform(size=G) < 0.35
-    signs = grng.choice(np.asarray([-1.0, 1.0], np.float32), size=(n_types, G))
-    tm = (base * np.where(de, 2.0 ** (signs * 6.0), 1.0)).astype(np.float32)
-    n_top = (keep * 3) // 4
-    top = np.argsort(-tm, axis=1)[:, :n_top].astype(np.int32)
-    return tm, top, n_top
-
-
-def _api_block_y(bi, bn, n_types):
-    return np.random.default_rng(1000 + bi).integers(0, n_types, bn)
-
-
-def _api_gen_block(path, bi, bn, G, keep, tm, top, n_top):
-    import scipy.sparse as sp
-
-    from sharp_tpu_torch.io.native import write_sblk
-
-    rng = np.random.default_rng(1000 + bi)
-    y = rng.integers(0, tm.shape[0], bn)
-    tail = rng.integers(0, G, (bn, keep - n_top), dtype=np.int32)
-    cols = np.concatenate([top[y], tail], axis=1)
-    cols.sort(axis=1)
-    vals = tm[y[:, None], cols] * np.exp(0.3 * rng.standard_normal((bn, keep), dtype=np.float32))
-    vals *= 1e6 / vals.sum(axis=1, keepdims=True)
-    indptr = np.arange(bn + 1, dtype=np.int64) * keep
-    write_sblk(path, sp.csr_matrix((vals.ravel(), cols.ravel(), indptr), shape=(bn, G)), dtype_code=0)
 
 
 def _patched_rp(streaming, R):
@@ -1358,6 +1343,7 @@ def phase_unlimited(dev, record, tmp):
     import sharp_tpu_torch
     from sharp_tpu_torch.analysis.ari import ari
     from sharp_tpu_torch.config import resolve_config
+    from sharp_tpu_torch.io import benchdata
     from sharp_tpu_torch.io.blocks import save_blocks
     from sharp_tpu_torch.parallel import streaming
     from synth import make_tpm_like
@@ -1405,15 +1391,15 @@ def phase_unlimited(dev, record, tmp):
     warm = os.path.join(tmp, "warm")
     os.makedirs(data)
     os.makedirs(warm)
-    tm, top, n_top = _api_type_means(API_GENES, API_TYPES, API_KEEP)
+    tm, top, n_top = benchdata.type_means(API_GENES, API_TYPES, API_KEEP)
     for bi in range(API_BLOCKS):
-        _api_gen_block(os.path.join(data, f"block_{bi:05d}.sblk"), bi, API_BLOCK, API_GENES,
+        benchdata.gen_block(os.path.join(data, f"block_{bi:05d}.sblk"), bi, API_BLOCK, API_GENES,
                        API_KEEP, tm, top, n_top)
     n_cells = API_BLOCK * API_BLOCKS
     with open(os.path.join(data, "blocks.json"), "w") as fh:
         json.dump({"n_cells": n_cells, "n_genes": API_GENES, "n_blocks": API_BLOCKS}, fh)
     os.symlink(os.path.join(data, "block_00000.sblk"), os.path.join(warm, "block_00000.sblk"))
-    y = np.concatenate([_api_block_y(bi, API_BLOCK, API_TYPES) for bi in range(API_BLOCKS)])
+    y = np.concatenate([benchdata.block_y(bi, API_BLOCK, API_TYPES) for bi in range(API_BLOCKS)])
     gen_s = time.perf_counter() - t0
     sblk_bytes = sum(os.path.getsize(os.path.join(data, f)) for f in os.listdir(data))
     print(f"[unlimited] flagship blocks: {API_BLOCKS} x {API_BLOCK} x {API_GENES}, "
@@ -1681,6 +1667,108 @@ def phase_parallel_processes(dev, record, flag6):
     record.setdefault("parallel", {})["two_processes_4x50000x27998"] = row
 
 
+# --- the bench's compute path ------------------------------------------------
+
+
+def phase_bench(dev, record):
+    """Phase 9: bench_torch.py's compute path in this process at its full
+    size (1,306,127 cells in 26 blocks, 654 folds in 41 groups of 16 at
+    n_pad 2048, the per-block fuses and the global fuse), with its own
+    gates (the parity pre-check; ARI >= 0.80 and 12-57 clusters) and
+    these: in every fold group of the timed fold pass the round kernel at
+    each ladder level (2048, 1024, 512), the tail kernel once and serial
+    Ward once for the group's 16 wMetaC problems; a cut replay per linkage
+    in every timed part; the global fuse's sMetaC tensors on the card and a
+    linkage kernel launched in its window. Returns the launches of the
+    whole run (pre-check, warm-up and stages included)."""
+    import torch
+
+    import bench_torch
+    from sharp_tpu_torch.core import fold
+    from sharp_tpu_torch.ops import linkage_cuda
+    from sharp_tpu_torch.parallel import streaming
+
+    env = bench_torch._bench_env()
+    if env["n_cells"] != 1306127 or len(env["blocks"]) != 26:
+        raise AssertionError(f"bench: the workload is not the default one (SHARP_BENCH_* set?): {env}")
+    torch.cuda.empty_cache()
+    # the ladder levels of the round launches inside each fold-program
+    # call, and the devices of the global fuse's sMetaC tensors
+    calls, current, global_devices = [], [None], []
+    real_round, real_program, real_smetac = linkage_cuda.rnn_round_kernel, fold.fold_program, streaming.smetac
+
+    def round_spy(W, *a):
+        if current[0] is not None:
+            current[0].append(W.shape[-1])
+        return real_round(W, *a)
+
+    def program_spy(*a, **k):
+        current[0] = []
+        try:
+            return real_program(*a, **k)
+        finally:
+            calls.append(current[0])
+            current[0] = None
+
+    def smetac_spy(cents, valid, *a, **k):
+        out = real_smetac(cents, valid, *a, **k)
+        global_devices.append(sorted({cents.device.type, valid.device.type, out.tf.device.type}))
+        return out
+
+    linkage_cuda.rnn_round_kernel, fold.fold_program, streaming.smetac = round_spy, program_spy, smetac_spy
+    try:
+        for counter in (linkage_cuda.LAUNCHES, linkage_cuda.PROBLEMS):
+            counter.update(dict.fromkeys(counter, 0))
+        t0 = time.perf_counter()
+        line, msgs, rc, rec = bench_torch.compute_path(env, dev)
+        wall = time.perf_counter() - t0
+        launches, problems = dict(linkage_cuda.LAUNCHES), dict(linkage_cuda.PROBLEMS)
+    finally:
+        linkage_cuda.rnn_round_kernel, fold.fold_program, streaming.smetac = real_round, real_program, real_smetac
+    d = line["detail"]
+    if rc != 0:
+        raise AssertionError(f"bench: exit code {rc}: {msgs}; {json.dumps(d)[:2000]}")
+    print(
+        f"[bench] compute path, {d['n_cells']} cells x {d['n_genes']} genes, {d['n_blocks']} blocks, {d['n_folds']} "
+        f"folds: {line['value']:.1f} cells/s, ARI {d['ari_vs_planted_types']:.4f}, {d['n_clusters_found']} clusters; "
+        f"timed {d['total_seconds']:.3f} s = fold pass {d['fold_pass_seconds']:.3f} + block fuse "
+        f"{d['block_fuse_seconds']:.3f} + global fuse {d['global_fuse_seconds']:.3f}; wall of the run {wall:.1f} s "
+        f"(warm-up {d['compile_seconds']:.1f} s, generation {d['datagen_seconds_untimed']:.1f} s); linkage "
+        f"{d['linkage_backend']}",
+        flush=True,
+    )
+    print(f"[bench] per fold group (s): {json.dumps(d['fold_group_seconds'])}; per block, fused alone (s): "
+          f"{json.dumps(d['block_fuse_each_seconds_untimed'])}", flush=True)
+    print(f"[bench] block fuses {json.dumps(d['block_fuses'])}; global fuse {json.dumps(d['global_fuse'])}",
+          flush=True)
+    print(f"[bench] launches of the timed parts {json.dumps(d['launches'])}, problems {json.dumps(d['problems'])}; "
+          f"of the whole run {launches}; stages {json.dumps(d.get('stages'))}", flush=True)
+
+    groups = -(-d["n_folds"] // d["fold_group_size"])
+    group_calls = calls[-groups:]
+    for g, (levels, lc, pc) in enumerate(zip(group_calls, rec["group_launches"], rec["group_problems"])):
+        if sorted(set(levels)) != [512, 1024, 2048] or lc["rnn_round"] != len(levels):
+            raise AssertionError(f"bench: fold group {g} ran its rounds at levels {sorted(set(levels))} "
+                                 f"({lc['rnn_round']} launches)")
+        if lc["rnn_tail"] != 1 or lc["ward_serial"] != 1 or pc["ward_serial"] != d["fold_group_size"]:
+            raise AssertionError(f"bench: fold group {g}: launches {lc}, problems {pc}")
+        if lc["cutree"] < lc["ward_serial"] + lc["rnn_tail"]:
+            raise AssertionError(f"bench: fold group {g}: a linkage went without its cut replay: {lc}")
+    for part, lc in d["launches"].items():
+        if lc["cutree"] < lc["ward_serial"] + lc["rnn_tail"]:
+            raise AssertionError(f"bench: {part}: a linkage went without its cut replay: {lc}")
+    glc = d["launches"]["global_fuse"]
+    if not global_devices or any(devs != ["cuda"] for devs in global_devices) or (
+        glc["ward_serial"] + glc["rnn_tail"] + glc["rnn_round"] < 1
+    ):
+        raise AssertionError(f"bench: the global fuse did not run on the card: tensors on {global_devices}, "
+                             f"launches {glc}")
+    record["bench"] = dict(line=line, wall_s=wall, launches=launches, problems=problems, **rec,
+                           group_round_levels=[sorted(set(c)) for c in group_calls],
+                           global_fuse_devices=global_devices)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1729,6 +1817,7 @@ def main() -> int:
         phase_parallel_processes(dev, record, flag6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    bench_counts = phase_bench(dev, record)
     for row, key, fn, kernel, label in _DEFERRED:
         # a second try where the profiler returned no kernel events
         row[key] = _device_ms(fn, kernel) or _device_ms(fn, kernel)
@@ -1749,8 +1838,8 @@ def main() -> int:
     def entry(name, replaces, err, ms, plain_ms, bound_ms, bound_by, device_ms=None):
         # launches: sharp_unlimited over the 4 flagship blocks (problems: the
         # problems or lanes those launches took); launches_by_path adds the
-        # large tier's flagship run, phase 7 (a)'s gethclust calls and the
-        # flagship block over two shards.
+        # large tier's flagship run, phase 7 (a)'s gethclust calls, the
+        # flagship block over two shards and the bench's compute path.
         # ms: one call through the wrapper (CUDA events); device_ms: the
         # kernel alone (torch.profiler), null where not measured
         return {
@@ -1759,7 +1848,8 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "device_ms": device_ms,
             "launches_by_path": {"large": large_counts[name], "unlimited": unl_counts[name],
-                                 "analysis": analysis_counts[name], "parallel": par_counts[name]},
+                                 "analysis": analysis_counts[name], "parallel": par_counts[name],
+                                 "bench": bench_counts[name]},
         }
 
     kernels = {

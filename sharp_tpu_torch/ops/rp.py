@@ -36,10 +36,14 @@ def ternary_rp_matrix(
 
 
 def ensemble_rp_matrix(
-    rN_seed: int, K: int, m: int, p: int, dtype=torch.float32, device="cpu"
+    rN_seed: int, K: int, m: int, p: int, dtype=torch.float32, device="cuda"
 ) -> torch.Tensor:
     """All K ensemble RP matrices stacked to (m, K*p), member k drawn from
-    its own stream (`member_generator`)."""
+    its own stream (`member_generator`), on `device` (a CUDA request
+    without a card raises, `api.resolve_device`)."""
+    from sharp_tpu_torch.api import resolve_device
+
+    device = resolve_device(device)
     cols = [
         ternary_rp_matrix(member_generator(rN_seed, k, device), m, p, dtype)
         for k in range(K)

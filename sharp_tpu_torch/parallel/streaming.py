@@ -135,9 +135,10 @@ def _gather_summaries(block_results, cfg: SharpConfig, n_blocks: int, pcount: in
     return summaries
 
 
-def global_block_fuse(summaries, cfg: SharpConfig, device="cpu"):
+def global_block_fuse(summaries, cfg: SharpConfig, device="cuda"):
     """Global sMetaC over block summaries + size-ordered relabelling
-    (R/SHARP_unlimited.R:162-183), on `device`.
+    (R/SHARP_unlimited.R:162-183), on `device` (a CUDA request without a
+    card raises, `api.resolve_device`).
 
     summaries: (centroids (C_b, p) float32, counts (C_b,)) per block, in
     block order. Returns (tf, remap, offsets, order, meta_sizes): the meta
@@ -145,6 +146,9 @@ def global_block_fuse(summaries, cfg: SharpConfig, device="cpu"):
     id of each meta label, each block's first global cluster id, the meta
     labels by decreasing size and the cells of each meta label.
     """
+    from sharp_tpu_torch.api import resolve_device
+
+    device = resolve_device(device)
     if len(summaries) == 1:
         # one block's consensus IS the final clustering: re-clustering its
         # ~k near-equidistant centroids has no replica structure for sMetaC

@@ -82,16 +82,16 @@ def test_port_runs_without_importing_jax():
 
 
 def test_port_source_imports_nothing_of_the_jax_package():
-    """No module of the port and not chip_smoke.py names the JAX package or
-    JAX in an import; matplotlib is imported only inside the plot functions
-    (the machine with the card has none)."""
+    """No module of the port, not chip_smoke.py and not bench_torch.py
+    names the JAX package or JAX in an import; matplotlib is imported only
+    inside the plot functions (the machine with the card has none)."""
     import re
 
     pat = re.compile(
         r"^\s*(import (sharp_tpu|jax)\b(?!_torch)|from (sharp_tpu|jax)[ .](?!_torch))", re.M
     )
     mpl = re.compile(r"^\s*(import|from) matplotlib\b", re.M)
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py")]
     for root, _, files in os.walk(os.path.join(REPO, "sharp_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     bad = [p for p in paths if pat.search(open(p).read())]
@@ -257,22 +257,53 @@ def test_carry_checks_shapes():
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
-    """chip_smoke.py exits non-zero and prints no result without a CUDA
-    device, and in a directory that holds nothing else of the repo."""
+    """chip_smoke.py and bench_torch.py exit non-zero and print no result
+    (chip_smoke's "ok" line, the bench's metric) without a CUDA device,
+    and in a directory that holds nothing else of the repo."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    out = subprocess.run(
-        [sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO,
-        capture_output=True, text=True, timeout=120,
-    )
-    assert out.returncode != 0
-    assert '"ok"' not in out.stdout
-    alone = tmp_path / "chip_smoke.py"
-    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run(
-        [sys.executable, str(alone)], cwd=tmp_path, env=env,
-        capture_output=True, text=True, timeout=120,
-    )
-    assert out.returncode != 0
-    assert '"ok"' not in out.stdout
+    for script, result in (("chip_smoke.py", '"ok"'), ("bench_torch.py", '"metric"')):
+        out = subprocess.run(
+            [sys.executable, os.path.join(REPO, script)], cwd=REPO,
+            capture_output=True, text=True, timeout=120,
+        )
+        assert out.returncode != 0, script
+        assert result not in out.stdout, script
+        alone = tmp_path / script
+        shutil.copy(os.path.join(REPO, script), alone)
+        out = subprocess.run(
+            [sys.executable, str(alone)], cwd=tmp_path, env=env,
+            capture_output=True, text=True, timeout=120,
+        )
+        assert out.returncode != 0, script
+        assert result not in out.stdout, script
+        alone.unlink()
+
+
+def test_global_fuse_and_rp_matrix_default_to_the_card():
+    """`parallel.streaming.global_block_fuse` and `ops.rp.ensemble_rp_matrix`
+    run on the card unless asked for the CPU, as `sharp` does, and a CUDA
+    request without a card raises; device="cpu" runs them here."""
+    import inspect
+
+    from sharp_tpu_torch.config import resolve_config
+    from sharp_tpu_torch.ops.rp import ensemble_rp_matrix
+    from sharp_tpu_torch.parallel.streaming import global_block_fuse
+
+    for fn in (global_block_fuse, ensemble_rp_matrix):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    cfg = resolve_config(600, 100, rN_seed=1)
+    rng = np.random.default_rng(0)
+    summaries = [(rng.normal(size=(6, 8)).astype(np.float32), np.full(6, 50.0)) for _ in range(2)]
+    assert ensemble_rp_matrix(3, 2, 100, 8, device="cpu").device.type == "cpu"
+    tf, remap, offsets, order, sizes = global_block_fuse(summaries, cfg, device="cpu")
+    assert len(tf) >= 12 and offsets.tolist() == [0, 6, 12] and sizes.sum() == 600
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ensemble_rp_matrix(3, 2, 100, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        global_block_fuse(summaries, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        global_block_fuse(summaries[:1], cfg)

@@ -609,3 +609,48 @@ def test_gethclust_on_card_equals_cpu(dev, n):
     assert got["oind"] == ref["oind"]
     np.testing.assert_allclose(got["msil"], ref["msil"], atol=1e-6)
     np.testing.assert_allclose(got["CHind"], ref["CHind"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("clusters", [30, 40])
+def test_global_block_fuse_runs_on_the_card_by_default(dev, monkeypatch, clusters):
+    """The global fuse of 26 block summaries at the bench's declared size
+    (1,306,127 cells: minN 26, maxN 262), without a device argument: its
+    sMetaC inputs and outputs sit on the card, its linkage and cut replay
+    launch their kernels (serial Ward at NC_pad 1024 for 26 x 30 clusters,
+    the ladder at 1536 for 26 x 40), and the result is the CPU's. The RP
+    matrix also defaults to the card."""
+    from sharp_tpu_torch.config import resolve_config
+    from sharp_tpu_torch.ops import linkage_cuda
+    from sharp_tpu_torch.ops.rp import ensemble_rp_matrix
+    from sharp_tpu_torch.parallel import streaming
+
+    assert ensemble_rp_matrix(7, 2, 100, 8).device.type == "cuda"
+    seen = []
+    real = streaming.smetac
+
+    def spy(cents, valid, *a, **k):
+        out = real(cents, valid, *a, **k)
+        seen.append({cents.device.type, valid.device.type, out.tf.device.type, out.n_final.device.type})
+        return out
+
+    monkeypatch.setattr(streaming, "smetac", spy)
+    cfg = resolve_config(1306127, 27998, ensize_K=5, reduced_ndim=256, partition_ncells=2000, rN_seed=7,
+                         dtype_compute="bfloat16", forview=False)
+    rng = np.random.default_rng(clusters)
+    types = rng.normal(size=(38, 64)) * 3.0
+    summaries = []
+    for _ in range(26):
+        t = rng.integers(0, 38, clusters)
+        cents = (types[t] + 0.2 * rng.normal(size=(clusters, 64))).astype(np.float32)
+        summaries.append((cents, rng.integers(100, 5000, clusters).astype(np.float64)))
+    before = dict(linkage_cuda.LAUNCHES)
+    card = streaming.global_block_fuse(summaries, cfg)
+    launched = {k: linkage_cuda.LAUNCHES[k] - before[k] for k in before}
+    cpu = streaming.global_block_fuse(summaries, cfg, device="cpu")
+    assert seen == [{"cuda"}, {"cpu"}]
+    linkage = "ward_serial" if clusters == 30 else "rnn_tail"
+    assert launched[linkage] == 1 and launched["cutree"] == 1, launched
+    if clusters == 40:
+        assert launched["rnn_round"] >= 2, launched
+    tf, remap = card[0][: 26 * clusters], card[1]
+    np.testing.assert_array_equal(remap[tf], cpu[1][cpu[0][: 26 * clusters]])
