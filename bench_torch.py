@@ -340,12 +340,13 @@ def fold_pass(make_group, plan, B, R_all, cfg, group, dev, n_blocks):
 
 
 def block_fuse(block_frs, cfg, dev):
-    """The per-block sMetaC fuses in one batched call (bench.py:404-418) ->
+    """The per-block sMetaC fuses in one batched call (bench.py:404-418),
+    every block of a shape bucket in one `smetac` call (`group`), ->
     (fused, block summaries (centroids, counts) of each block's live
     clusters, each block's labels as positions in them)."""
     from sharp_tpu_torch.core.large import fuse_blocks
 
-    fused = fuse_blocks(block_frs, cfg, device=dev)
+    fused = fuse_blocks(block_frs, cfg, group=len(block_frs), device=dev)
     summaries, labels = [], []
     for fres in fused:
         uniq = np.unique(fres.labels)

@@ -143,6 +143,22 @@ Phases, in order; any failure raises and the script exits non-zero:
               and its parts (fold pass, block fuse, global fuse), the
               min/median/max per fold group and per block, the fuse shapes
               and the launches.
+ 10. surface  the JAX package's knobs and entry points beside the main
+              path. (a), (b) right after phase 5 (b); (c) after phase 8 (c).
+              (a) The flagship block through sharp() under
+              SHARP_TPU_FOLD_TIMING=1 and a SHARP_TPU_HBM_BUDGET that makes
+              auto_group pick a group of 4 (7 fold groups): labels identical
+              to phase 5 (b)'s at group 16, every kernel launched (3 ladder
+              levels and a tail a group, serial Ward on every wMetaC
+              problem, a cut replay per linkage); prints the group and the
+              [fold-timing] parts (slice, transfer, device, readback) and
+              their sum beside fold_ensemble. (b) fuse_folds(frs, cfg, N) on
+              the card with the JAX package's positional arguments, on (a)'s
+              fold summaries: the labels and cluster count of
+              fuse_folds(frs, cfg). (c) The SBLK codec (g++, io/native) on
+              phase 6 (b)'s first block, 50,000 x 27,998: built and loaded;
+              densify on 1 thread and on all threads identical to the numpy
+              plain version; the three times.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it holds the card's name and power limit as nvidia-smi prints them,
@@ -150,7 +166,8 @@ and the one before that the kernels' JSON record: per kernel its launches
 in the run of phase 6 (b) and the problems they took (and, under
 launches_by_path, its launches in the flagship run
 of phase 5 (b), in phase 7 (a)'s gethclust calls, in phase 8 (b), the
-flagship block over two shards, and in phase 9's whole run), its largest difference from the plain version, its time
+flagship block over two shards, in phase 9's whole run and in phase 10
+(a)), its largest difference from the plain version, its time
 per call (and device_ms, the kernel alone), the plain version's, its bound
 and what bounds it. No single PyTorch call
 computes any of these functions, so library_ms is null. The full record
@@ -1667,6 +1684,164 @@ def phase_parallel_processes(dev, record, flag6):
     record.setdefault("parallel", {})["two_processes_4x50000x27998"] = row
 
 
+# --- the surface the JAX package has beside the main path -------------------
+# the group phase 10 (a) asks auto_group for through SHARP_TPU_HBM_BUDGET
+SURFACE_GROUP = 4
+
+
+def _fold_timing(err: str) -> dict:
+    """The four parts of the `[fold-timing]` line the grouped pass printed."""
+    import re
+
+    lines = [ln for ln in err.splitlines() if ln.startswith("[fold-timing]")]
+    if len(lines) != 1:
+        raise AssertionError(f"surface (a): {len(lines)} [fold-timing] lines, expected one")
+    parts = {k: float(v) for k, v in re.findall(r"(\w+_s)=([0-9.]+)", lines[0])}
+    if list(parts) != ["slice_s", "transfer_s", "device_s", "readback_s"]:
+        raise AssertionError(f"surface (a): the [fold-timing] line has other keys: {lines[0]}")
+    return parts
+
+
+def phase_surface(dev, record, Xbig, flagship):
+    """Phase 10 (a), (b), after phase 5 (b). (a) The flagship block through
+    sharp() under SHARP_TPU_FOLD_TIMING=1 and a SHARP_TPU_HBM_BUDGET that
+    makes auto_group pick a group of 4: phase 5 (b)'s labels (at group 16),
+    every kernel launched, the four parts of the fold pass beside
+    fold_ensemble. (b) fuse_folds with the JAX package's positional
+    arguments (frs, cfg, N) on that run's fold summaries: the labels and
+    cluster count of fuse_folds(frs, cfg). Returns (a)'s launch counts."""
+    import contextlib
+    import io
+
+    from sharp_tpu_torch.config import resolve_config
+    from sharp_tpu_torch.core import large
+    from sharp_tpu_torch.ops.silhouette import SWEEP_CHUNK_BYTES
+    from sharp_tpu_torch.parallel import sharded
+
+    out = {}
+    n, genes = Xbig.shape
+    cfg = resolve_config(n, genes, **SEED_KW)
+    fold_bytes = sharded._fold_bytes(2048, genes, False, cfg.ensize_K, **sharded._sweep_shape(cfg))
+    budget = SWEEP_CHUNK_BYTES + (SURFACE_GROUP + 1) * fold_bytes
+    groups, fused = [], []
+    real_group, real_fuse = sharded.auto_group, large.fuse_folds
+
+    def group_spy(*a, **k):
+        groups.append(real_group(*a, **k))
+        return groups[-1]
+
+    def fuse_spy(frs, cfg_, *a, **k):
+        fused.append((frs, cfg_))
+        return real_fuse(frs, cfg_, *a, **k)
+
+    saved_env = {k: os.environ.get(k) for k in ("SHARP_TPU_FOLD_TIMING", "SHARP_TPU_HBM_BUDGET")}
+    os.environ.update(SHARP_TPU_FOLD_TIMING="1", SHARP_TPU_HBM_BUDGET=str(budget))
+    sharded.auto_group, large.fuse_folds = group_spy, fuse_spy
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            res, wall, counts, problems, routes = _run_counted(Xbig, device=dev, **SEED_KW)
+    finally:
+        sharded.auto_group, large.fuse_folds = real_group, real_fuse
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    sys.stderr.write(err.getvalue())
+    parts = _fold_timing(err.getvalue())
+    fe = _stages(res)["fold_ensemble"]
+    same = bool(np.array_equal(res.pred_clusters, flagship.pred_clusters))
+    T = len(large.fold_sizes(n, FOLD))
+    n_groups = math.ceil(T / SURFACE_GROUP)
+    print(
+        f"[surface] (a) flagship_50000x27998 with SHARP_TPU_HBM_BUDGET={budget} "
+        f"({budget / 2**30:.3f} GiB): auto_group picked {groups}; labels {'identical to' if same else 'DIFFER from'} "
+        f"phase 5 (b)'s at group {GROUP}; wall {wall:.3f} s, fold_ensemble {fe:.3f} s; [fold-timing] "
+        + " ".join(f"{k}={v:.2f}" for k, v in parts.items())
+        + f", sum {sum(parts.values()):.2f} s of fold_ensemble {fe:.3f} s; launches {counts}, problems {problems}",
+        flush=True,
+    )
+    if groups != [SURFACE_GROUP]:
+        raise AssertionError(f"surface (a): auto_group picked {groups}, expected [{SURFACE_GROUP}]")
+    if not same:
+        raise AssertionError("surface (a): the labels at group 4 differ from phase 5 (b)'s at group 16")
+    if min(counts.values()) < 1 or counts["rnn_tail"] < n_groups or counts["rnn_round"] < 3 * n_groups:
+        raise AssertionError(f"surface (a): a kernel ran too few times for {n_groups} fold groups: {counts}")
+    if problems["ward_serial"] < T + 1 or counts["ward_serial"] > n_groups + 1:
+        raise AssertionError(f"surface (a): serial Ward took {problems['ward_serial']} problems (>= {T + 1}) "
+                             f"in {counts['ward_serial']} launches (<= {n_groups + 1})")
+    if counts["cutree"] < counts["ward_serial"] + counts["rnn_tail"] or routes["cutree"]["serial"]:
+        raise AssertionError(f"surface (a): a linkage went without its cut replay, or took the serial "
+                             f"route: {counts}, {routes}")
+    out["fold_timing_group4"] = dict(
+        hbm_budget_bytes=budget, group=groups[0], fold_groups=n_groups, labels_identical=same, wall_s=wall,
+        fold_ensemble_s=fe, fold_timing=parts, fold_timing_sum_s=sum(parts.values()), launches=counts,
+        problems=problems, routes=routes, stages=_stages(res),
+    )
+
+    # (b) fuse_folds(frs, cfg, N): N is the block's cell count, unused
+    frs, fcfg = fused[0]
+    by_pos = large.fuse_folds(frs, fcfg, n, device=dev)
+    plain = large.fuse_folds(frs, fcfg, device=dev)
+    same_fuse = bool(np.array_equal(by_pos.labels, plain.labels)) and by_pos.n_final == plain.n_final
+    print(f"[surface] (b) fuse_folds(frs, cfg, {n}) on the card: n_final {by_pos.n_final}, labels "
+          f"{'identical to' if same_fuse else 'DIFFER from'} fuse_folds(frs, cfg)'s (n_final {plain.n_final})",
+          flush=True)
+    if not same_fuse:
+        raise AssertionError("surface (b): fuse_folds(frs, cfg, N) differs from fuse_folds(frs, cfg)")
+    out["fuse_folds_positional"] = dict(n_total=n, n_final=by_pos.n_final, plain_n_final=plain.n_final,
+                                        identical=same_fuse)
+    record["surface"] = out
+    return counts
+
+
+def phase_surface_codec(record, flag6):
+    """Phase 10 (c): the SBLK codec on the first of phase 6 (b)'s blocks,
+    50,000 x 27,998: built with g++ and loaded; densify on 1 thread and on
+    all threads equal to the numpy plain version bit for bit; the three
+    times."""
+    from sharp_tpu_torch.io import native
+
+    path = os.path.join(flag6["dir"], "block_00000.sblk")
+    lib = native.get_lib()   # built at first use (phase 6 (a)'s host densify)
+    if lib is None:
+        raise AssertionError("surface (c): the SBLK codec was not built (no g++)")
+    # one more build, into a fresh cache, for its time
+    saved = os.environ.get("SHARP_TPU_NATIVE_CACHE")
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["SHARP_TPU_NATIVE_CACHE"] = cache
+        try:
+            t0 = time.perf_counter()
+            native._build_lib()
+            build_s = time.perf_counter() - t0
+        finally:
+            if saved is None:
+                os.environ.pop("SHARP_TPU_NATIVE_CACHE")
+            else:
+                os.environ["SHARP_TPU_NATIVE_CACHE"] = saved
+    n, g, nnz, dt = native.read_header(path)
+    row = dict(shape=[n, g], nnz=nnz, dtype_code=dt, library=os.path.basename(lib._name), build_s=build_s,
+               host_threads=os.cpu_count())
+    t0 = time.perf_counter()
+    plain = native._py_densify(path)
+    row["plain_s"] = time.perf_counter() - t0
+    for label, threads in (("one_thread", 1), ("all_threads", 0)):
+        t0 = time.perf_counter()
+        got = native.densify(path, threads)
+        row[f"{label}_s"] = time.perf_counter() - t0
+        row[f"{label}_identical"] = bool(np.array_equal(got, plain))
+        del got
+    del plain
+    print(f"[surface] (c) SBLK codec on block 0 ({n} x {g}, {nnz} nonzeros, {os.cpu_count()} host threads): "
+          f"densify 1 thread {row['one_thread_s']:.3f} s, all threads {row['all_threads_s']:.3f} s, numpy plain "
+          f"version {row['plain_s']:.3f} s; identical {row['one_thread_identical']} / "
+          f"{row['all_threads_identical']}; {row['library']} loaded, g++ build {build_s:.2f} s", flush=True)
+    if not (row["one_thread_identical"] and row["all_threads_identical"]):
+        raise AssertionError(f"surface (c): the codec's densify differs from the plain version: {row}")
+    record.setdefault("surface", {})["codec"] = row
+
+
 # --- the bench's compute path ------------------------------------------------
 
 
@@ -1807,14 +1982,16 @@ def main() -> int:
     rows, tail, rounds = phase_kernels(dev, record, Xbig, ybig)
     phase_slice(dev, record)
     large_counts, flagship = phase_large(dev, record, Xbig, ybig)
+    surface_counts = phase_surface(dev, record, Xbig, flagship)
     analysis_counts = phase_analysis(dev, record, Xbig, flagship)
     par_counts = phase_parallel_folds(dev, record, Xbig, ybig, flagship)
     del Xbig, ybig, flagship
     tmp = tempfile.mkdtemp(prefix="sharp_smoke_")
     try:
         unl_counts, unl_problems, flag6 = phase_unlimited(dev, record, tmp)
-        # phase 8 (c) over phase 6 (b)'s SBLK directory, before it is removed
+        # phase 8 (c) and 10 (c) over phase 6 (b)'s SBLK directory, before it is removed
         phase_parallel_processes(dev, record, flag6)
+        phase_surface_codec(record, flag6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     bench_counts = phase_bench(dev, record)
@@ -1839,7 +2016,8 @@ def main() -> int:
         # launches: sharp_unlimited over the 4 flagship blocks (problems: the
         # problems or lanes those launches took); launches_by_path adds the
         # large tier's flagship run, phase 7 (a)'s gethclust calls, the
-        # flagship block over two shards and the bench's compute path.
+        # flagship block over two shards, the bench's compute path and
+        # phase 10 (a)'s flagship run at group 4.
         # ms: one call through the wrapper (CUDA events); device_ms: the
         # kernel alone (torch.profiler), null where not measured
         return {
@@ -1849,7 +2027,7 @@ def main() -> int:
             "library_ms": None, "device_ms": device_ms,
             "launches_by_path": {"large": large_counts[name], "unlimited": unl_counts[name],
                                  "analysis": analysis_counts[name], "parallel": par_counts[name],
-                                 "bench": bench_counts[name]},
+                                 "bench": bench_counts[name], "surface": surface_counts[name]},
         }
 
     kernels = {

@@ -8,7 +8,9 @@ reshuffle before the fold partition (`sharp_tpu/core/large.py:428-434`),
 and the t-SNE start layout of the embedding (`sharp_tpu/analysis/embed.py:89`). `torch.Generator` cannot reproduce
 JAX's threefry streams, so a comparison between the two packages makes
 these arrays once (with the JAX package, or with numpy) and hands them to
-the port as numpy arrays through the functions here.
+the port as numpy arrays through the functions here. Like every entry
+point of the port, they put their tensors on the card unless the caller
+asks for the CPU (`device="cpu"`).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from sharp_tpu_torch.core.pipeline import TestlogProbe
 
 
-def rp_from_jax(R_all: np.ndarray, K: int, p: int, device="cpu") -> torch.Tensor:
+def rp_from_jax(R_all: np.ndarray, K: int, p: int, device="cuda") -> torch.Tensor:
     """The stacked (genes, K*p) ensemble RP matrix as the port's tensor."""
     R = np.asarray(R_all)
     if R.ndim != 2 or R.shape[1] != K * p:
@@ -28,7 +30,7 @@ def rp_from_jax(R_all: np.ndarray, K: int, p: int, device="cpu") -> torch.Tensor
 
 
 def testlog_probe_from_jax(
-    perm: np.ndarray, R_probe: np.ndarray, n: int, genes: int, p: int, device="cpu"
+    perm: np.ndarray, R_probe: np.ndarray, n: int, genes: int, p: int, device="cuda"
 ) -> TestlogProbe:
     """The testlog probe: `perm` a permutation of the n cells (the JAX
     package's `jax.random.permutation(testlog_key(key), n)`), `R_probe`
@@ -46,7 +48,7 @@ def testlog_probe_from_jax(
     )
 
 
-def tsne_layout_from_jax(Y0: np.ndarray, n: int, device="cpu") -> torch.Tensor:
+def tsne_layout_from_jax(Y0: np.ndarray, n: int, device="cuda") -> torch.Tensor:
     """The t-SNE start layout: `Y0` the (n, 2) array of the JAX package's
     `1e-4 * jax.random.normal(PRNGKey(seed), (n, 2))`, as the port's float32
     tensor (`visualization_embedding(..., Y0=...)`)."""

@@ -20,6 +20,7 @@ imports jax).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -52,6 +53,29 @@ def fold_sizes(n: int, partition_ncells: int) -> List[int]:
     return sizes
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def summary_to_host(s, n_fold: int, forview: bool = True) -> dict:
+    """One fold's FoldSummary (device tensors or host arrays) -> host dict,
+    truncated to the fold's n_fold real cells. `forview=False` skips the
+    O(B x p) planes `mean_proj` and `x0`, which only the view needs."""
+    out = {
+        "finalC": _host(s.finalC)[:n_fold],
+        "n_meta": int(_host(s.n_meta)),
+        "cent_sum": _host(s.cent_sum),
+        "counts": _host(s.counts),
+        "k_per": _host(s.k_per),
+        "maxsil": _host(s.maxsil),
+        "overflow": bool(_host(s.overflow)),
+    }
+    if forview:
+        out["mean_proj"] = _host(s.mean_proj)[:n_fold]
+        out["x0"] = _host(s.x0)[:n_fold]
+    return out
+
+
 _SUMMARY_FIELDS = (
     "finalC", "n_meta", "cent_sum", "counts", "k_per", "maxsil", "overflow"
 )
@@ -61,24 +85,36 @@ def summaries_to_host(out, sizes, forview: bool) -> List[dict]:
     """A batched FoldSummary (leading fold axis) -> per-fold host dicts,
     one copy to the host per field."""
     names = _SUMMARY_FIELDS + (("mean_proj", "x0") if forview else ())
-    host = {k: getattr(out, k).cpu().numpy() for k in names}
-    res = []
-    for gi, sz in enumerate(sizes):
-        sz = int(sz)
-        fr = {
-            "finalC": host["finalC"][gi][:sz],
-            "n_meta": int(host["n_meta"][gi]),
-            "cent_sum": host["cent_sum"][gi],
-            "counts": host["counts"][gi],
-            "k_per": host["k_per"][gi],
-            "maxsil": host["maxsil"][gi],
-            "overflow": bool(host["overflow"][gi]),
-        }
-        if forview:
-            fr["mean_proj"] = host["mean_proj"][gi][:sz]
-            fr["x0"] = host["x0"][gi][:sz]
-        res.append(fr)
-    return res
+    host = {k: _host(getattr(out, k)) for k in names}
+    return [
+        summary_to_host(SimpleNamespace(**{k: v[gi] for k, v in host.items()}), int(sz), forview)
+        for gi, sz in enumerate(sizes)
+    ]
+
+
+def process_fold(
+    X_fold: np.ndarray,
+    n_fold: int,
+    block_pad: int,
+    R_all: torch.Tensor,
+    cfg: SharpConfig,
+    logf: bool,
+    *,
+    device="cuda",
+) -> dict:
+    """One fold: ensemble cluster + wMetaC, as a group of one through the
+    fold program, with `indN_cluster` kept. Returns its host summary."""
+    from sharp_tpu_torch.core.fold import fold_program, fold_static_args
+
+    dev = torch.device(device)
+    Xp = torch.zeros((block_pad, X_fold.shape[1]), dtype=torch.float32)
+    Xp[:n_fold] = torch.as_tensor(np.asarray(X_fold, np.float32)[:n_fold])
+    mask = torch.arange(block_pad) < n_fold
+    s = fold_program(
+        Xp.to(dev), mask.to(dev), n_fold, R_all.to(dev), logf, cfg.indN_cluster,
+        **fold_static_args(cfg),
+    )
+    return summary_to_host(s, n_fold, forview=cfg.forview)
 
 
 class FuseResult(NamedTuple):
@@ -215,12 +251,14 @@ def _single_fold_result(fr: dict) -> FuseResult:
 def fuse_folds(
     fold_results: List[dict],
     cfg: SharpConfig,
+    n_total: Optional[int] = None,
     finalN_cluster: Optional[int] = None,
     *,
     device="cuda",
 ) -> FuseResult:
     """Global sMetaC over per-fold cluster summaries (R/SHARP.R:747-773),
-    run on `device`."""
+    run on `device`. `n_total` (the block's cells) is accepted and unused,
+    as in the JAX package."""
     return fuse_blocks([fold_results], cfg, finalN_cluster, device=device)[0]
 
 
@@ -228,6 +266,7 @@ def fuse_blocks(
     blocks_fold_results: List[List[dict]],
     cfg: SharpConfig,
     finalN_cluster: Optional[int] = None,
+    group: int = 8,
     *,
     device="cuda",
 ) -> List[FuseResult]:
@@ -235,10 +274,9 @@ def fuse_blocks(
     `[fuse_folds(frs, cfg) for frs in blocks_fold_results]`, with the
     blocks that share a shape key (NC_pad, minN, ncand, meta_nc_pad) fused
     in one `smetac` call (the JAX package's vmapped fuse,
-    `sharp_tpu/core/large.py:328-418`): one serial Ward launch and one cut
-    replay for the bucket. The caller bounds the batch (`sharp_unlimited`'s
-    `fuse_batch`). A block of one fold is its own fuse
-    (`_single_fold_result`)."""
+    `sharp_tpu/core/large.py:328-418`), at most `group` blocks a call: one
+    serial Ward launch and one cut replay a call. A block of one fold is
+    its own fuse (`_single_fold_result`)."""
     results: List[Optional[FuseResult]] = [None] * len(blocks_fold_results)
     preps: List[Optional[_PreparedBlock]] = [None] * len(blocks_fold_results)
     by_shape = {}
@@ -249,7 +287,8 @@ def fuse_blocks(
             continue
         prep = preps[bi] = _prepare_block(frs, cfg)
         by_shape.setdefault((prep.NC_pad, prep.minN, prep.ncand, prep.meta_nc_pad), []).append(bi)
-    for (NC_pad, minN, ncand, meta_nc_pad), idxs in by_shape.items():
+    chunks = [(key, idxs[g0 : g0 + group]) for key, idxs in by_shape.items() for g0 in range(0, len(idxs), group)]
+    for (NC_pad, minN, ncand, meta_nc_pad), idxs in chunks:
         bucket = [preps[bi] for bi in idxs]
         cents = np.zeros((len(bucket), NC_pad, bucket[0].cents.shape[1]), np.float32)
         for b, pr in enumerate(bucket):
@@ -328,7 +367,7 @@ def sharp_large(
 
     with timer.stage("smetac"):
         fres = fuse_folds(
-            fold_results, cfg, finalN_cluster=cfg.N_cluster, device=dev
+            fold_results, cfg, n_total=n, finalN_cluster=cfg.N_cluster, device=dev
         )
         raw_labels, x0 = fres.labels, fres.x0
 

@@ -36,6 +36,9 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import os
+import sys
+import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -53,12 +56,16 @@ from sharp_tpu_torch.utils.timers import log
 _CPU_BUDGET = 8 << 30
 
 
-def memory_budget_bytes(devices) -> int:
-    """Memory for one group's working set: 80% of a card's free memory
+def memory_budget_bytes(devices="cuda") -> int:
+    """Memory for one group's working set: `SHARP_TPU_HBM_BUDGET` (bytes)
+    when it is set, as in the JAX package; else 80% of a card's free memory
     (`torch.cuda.mem_get_info`) divided among the shards on that card and
     the processes that share it (`multihost.processes_per_card`), the least
     over the cards; 8 GiB on the CPU. `devices`: one device, or the shards'
     devices (a card listed twice holds two working sets)."""
+    env = os.environ.get("SHARP_TPU_HBM_BUDGET")
+    if env:
+        return int(env)
     devs = [torch.device(d) for d in (devices if isinstance(devices, (list, tuple)) else [devices])]
     cards = [torch.device("cuda", torch.cuda.current_device() if d.index is None else d.index)
              for d in devs if d.type == "cuda"]
@@ -70,9 +77,20 @@ def memory_budget_bytes(devices) -> int:
     return min(int(0.8 * torch.cuda.mem_get_info(c)[0]) // (cards.count(c) * procs) for c in set(cards))
 
 
+# the JAX package's name
+hbm_budget_bytes = memory_budget_bytes
+
+
+def _fold_bytes(block_pad: int, genes: int, sparse: bool, K: int, ncand: int, nc_pad: int) -> int:
+    """The working set one fold adds to a group (`auto_group`'s model)."""
+    dense_copies = 2 if sparse else 3
+    return (dense_copies * block_pad * genes * 4 + 5 * K * block_pad * block_pad * 4
+            + sweep_bytes(K, block_pad, ncand, nc_pad))
+
+
 def auto_group(
-    block_pad: int, genes: int, K: int, device, sparse: bool = False, cap: int = 16,
-    ncand: int = 39, nc_pad: int = 48,
+    block_pad: int, genes: int, sparse: bool = False, cap: int = 16,
+    *, K: int, device, ncand: int = 39, nc_pad: int = 48,
 ) -> int:
     """Fold-group size that fits the memory budget, at most `cap`.
 
@@ -88,9 +106,7 @@ def auto_group(
     scoring (`SWEEP_CHUNK_BYTES`) is held once per group. `device` as in
     `memory_budget_bytes`; K the members one device holds.
     """
-    dense_copies = 2 if sparse else 3
-    fold_bytes = (dense_copies * block_pad * genes * 4 + 5 * K * block_pad * block_pad * 4
-                  + sweep_bytes(K, block_pad, ncand, nc_pad))
+    fold_bytes = _fold_bytes(block_pad, genes, sparse, K, ncand, nc_pad)
     fit = (memory_budget_bytes(device) - SWEEP_CHUNK_BYTES) // fold_bytes
     for g in (16, 8, 4, 2):
         if fit >= g and cap >= g:
@@ -103,24 +119,46 @@ def _sweep_shape(cfg: SharpConfig) -> dict:
     return dict(ncand=static["ncand"], nc_pad=static["nc_pad"])
 
 
-def _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev):
+# the parts of the fold pass that SHARP_TPU_FOLD_TIMING=1 adds up
+FOLD_TIMING_KEYS = ("slice_s", "transfer_s", "device_s", "readback_s")
+
+
+def _now(timing: Optional[dict]) -> float:
+    """The host clock where the pass is timed, else 0 without reading it."""
+    return time.perf_counter() if timing is not None else 0.0
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing):
     """Per group: (fold sizes, dense folds on dev, log2 still to apply)."""
     genes = X.shape[1]
     for g0 in range(0, len(sizes), group):
+        t0 = _now(timing)
         gsizes = [int(s) for s in sizes[g0 : g0 + group]]
         Xg = np.zeros((len(gsizes), block_pad, genes), np.float32)
         for gi, sz in enumerate(gsizes):
             r0 = offsets[g0 + gi]
             np.take(X, rows[r0 : r0 + sz], axis=0, out=Xg[gi, :sz], mode="clip")
-        yield gsizes, torch.from_numpy(Xg).to(dev), logf
+        t1 = _now(timing)
+        data = torch.from_numpy(Xg).to(dev)
+        if timing is not None:
+            _sync(dev)
+            timing["slice_s"] += t1 - t0
+            timing["transfer_s"] += _now(timing) - t1
+        yield gsizes, data, logf
+        del data   # this frame's reference: the group goes when the caller drops its own
 
 
-def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype):
+def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype, timing):
     """Per group: (fold sizes, folds densified on dev with log2 applied,
     False). Group g is sliced into staging set g % 2 on a worker thread
     while the caller runs group g - 1; on a card the sets are page-locked
     and copied without blocking, and a set is refilled only after the copy
-    out of it has finished."""
+    out of it has finished. `timing` counts the densify as device time."""
     from sharp_tpu_torch.io.sparse import densify_folds, fold_triplets, nnz_pad, wire_buffers
 
     T = len(sizes)
@@ -134,49 +172,76 @@ def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype):
         gsizes = [int(s) for s in sizes[g0 : g0 + group]]
         if copied[gi % 2] is not None:
             copied[gi % 2].synchronize()
+        t0 = _now(timing)
         starts = [int(offsets[g0 + j]) for j in range(len(gsizes))]
-        return gsizes, fold_triplets(sb, starts, gsizes, block_pad, budget, wire_dtype, out=sets[gi % 2])
+        host = fold_triplets(sb, starts, gsizes, block_pad, budget, wire_dtype, out=sets[gi % 2])
+        return gsizes, host, _now(timing) - t0
 
     n_groups = (T + group - 1) // group
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         staged = pool.submit(stage, 0)
         for gi in range(n_groups):
-            gsizes, host = staged.result()
+            gsizes, host, slice_s = staged.result()
+            t1 = _now(timing)
             data = [t.to(dev, non_blocking=True) for t in host]
             if cuda:
                 copied[gi % 2] = torch.cuda.Event()
                 copied[gi % 2].record()
+            if timing is not None:
+                _sync(dev)
+                timing["slice_s"] += slice_s
+                timing["transfer_s"] += _now(timing) - t1
             if gi + 1 < n_groups:
                 staged = pool.submit(stage, gi + 1)
+            t2 = _now(timing)
             Xg = densify_folds(*data, block_pad=block_pad, genes=sb.g, log2p1=logf)
             del data
+            if timing is not None:
+                _sync(dev)
+                timing["device_s"] += _now(timing) - t2
             yield gsizes, Xg, False
 
 
 def _fold_groups(
     X, sizes, offsets, block_pad, R_all, cfg, logf, dev, group, rows, wire_dtype, indN,
-    ens: Optional[Callable] = None,
+    ens: Optional[Callable] = None, timing: Optional[dict] = None,
 ) -> List[dict]:
     """The summaries of the folds `sizes` (fold t starting at cell
     offsets[t] of X, or of `rows`), `group` folds per call on dev. `ens`
-    replaces the fold program of a group by the ensemble split."""
+    replaces the fold program of a group by the ensemble split. `timing`
+    (a dict of `FOLD_TIMING_KEYS`) adds up the parts of the pass, the card
+    synchronised after each."""
     from sharp_tpu_torch.io.sparse import SparseBlock
 
     if isinstance(X, SparseBlock):
-        feed = _sparse_feed(X, sizes, offsets, group, block_pad, logf, dev, wire_dtype)
+        feed = _sparse_feed(X, sizes, offsets, group, block_pad, logf, dev, wire_dtype, timing)
     else:
-        feed = _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev)
+        feed = _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing)
     static = fold_static_args(cfg)
     results: List[dict] = []
     for gsizes, Xg, eff_logf in feed:
+        t0 = _now(timing)
         masks = (torch.arange(block_pad)[None, :] < torch.tensor(gsizes)[:, None]).to(dev)
         if ens is None:
             out = fold_program(Xg, masks, gsizes, R_all, eff_logf, indN, **static)
         else:
             out = ens(Xg, masks, gsizes, eff_logf, indN)
         del Xg
+        if timing is not None:
+            _sync(dev)
+            t1 = _now(timing)
+            timing["device_s"] += t1 - t0
         results.extend(summaries_to_host(out, gsizes, cfg.forview))
+        if timing is not None:
+            timing["readback_s"] += _now(timing) - t1
     return results
+
+
+def _report_fold_timing(timing: dict) -> None:
+    """The JAX package's `[fold-timing]` line, to stderr and the log."""
+    parts = " ".join(f"{k}={v:.2f}" for k, v in timing.items())
+    log("fold pass timing: " + parts)
+    print("[fold-timing] " + parts, file=sys.stderr, flush=True)
 
 
 def _check_feed(X, rows):
@@ -195,10 +260,11 @@ def process_folds_grouped(
     R_all: torch.Tensor,         # (genes, K*p) on the device
     cfg: SharpConfig,
     logf: bool,
-    device,
     group: Optional[int] = None,
-    rows: Optional[np.ndarray] = None,
     wire_dtype: str = "float32",
+    *,
+    device="cuda",
+    rows: Optional[np.ndarray] = None,
 ) -> List[dict]:
     """Run the fold program over all folds, `group` folds per call, and
     return per-fold host summaries.
@@ -206,22 +272,31 @@ def process_folds_grouped(
     Fold t holds the cells rows[offsets[t] : offsets[t] + sizes[t]] of X
     (`rows`: the cell order, default X's own; a SparseBlock keeps its own
     order). `group=None` sizes the group from the memory budget
-    (`auto_group`). `wire_dtype` is the sparse feed's value type.
+    (`auto_group`). `wire_dtype` is the sparse feed's value type. With
+    `SHARP_TPU_FOLD_TIMING=1` the pass synchronises the card after each
+    part and prints the seconds of each (`[fold-timing] slice_s=...
+    transfer_s=... device_s=... readback_s=...`, to stderr): the host's
+    slicing, the copies to the card, the densify and the fold program, and
+    the summaries' readback.
     """
     dev = torch.device(device)
     T = len(sizes)
     sparse, rows = _check_feed(X, rows)
     if group is None:
-        group = auto_group(block_pad, X.shape[1], cfg.ensize_K, dev, sparse=sparse,
-                           **_sweep_shape(cfg))
+        group = auto_group(block_pad, X.shape[1], sparse, K=cfg.ensize_K, device=dev, **_sweep_shape(cfg))
         log(f"fold group auto-sized to {group}")
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     # the JAX package keeps indN_cluster only where one dense fold takes
     # its one-fold program (`process_fold`); its sparse feed and its passes
     # of several folds drop it
     indN = cfg.indN_cluster if T == 1 and not sparse else None
-    return _fold_groups(X, list(sizes), offsets, block_pad, R_all, cfg, logf, dev,
-                        max(1, min(group, T)), rows, wire_dtype, indN)
+    timing = (dict.fromkeys(FOLD_TIMING_KEYS, 0.0)
+              if os.environ.get("SHARP_TPU_FOLD_TIMING") == "1" else None)
+    results = _fold_groups(X, list(sizes), offsets, block_pad, R_all, cfg, logf, dev,
+                           max(1, min(group, T)), rows, wire_dtype, indN, timing=timing)
+    if timing is not None:
+        _report_fold_timing(timing)
+    return results
 
 
 @contextlib.contextmanager
@@ -320,7 +395,7 @@ def process_folds_sharded(
 
         load_kernels()   # built once, before the shard threads start
     if group is None:
-        group = auto_group(block_pad, X.shape[1], K_local, flat, sparse=sparse, **_sweep_shape(cfg))
+        group = auto_group(block_pad, X.shape[1], sparse, K=K_local, device=flat, **_sweep_shape(cfg))
         log(f"fold group auto-sized to {group} per shard")
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     static = fold_static_args(cfg)
@@ -381,5 +456,5 @@ def process_folds(
     if mesh is not None and len(sizes) > 1:
         return process_folds_sharded(X, sizes, block_pad, R_all, cfg, logf, mesh, rows=rows,
                                      wire_dtype=wire_dtype, group=group)
-    return process_folds_grouped(X, sizes, block_pad, R_all, cfg, logf, device, group=group, rows=rows,
-                                 wire_dtype=wire_dtype)
+    return process_folds_grouped(X, sizes, block_pad, R_all, cfg, logf, group, wire_dtype, device=device,
+                                 rows=rows)

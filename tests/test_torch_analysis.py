@@ -214,7 +214,7 @@ def test_embedding_p_and_first_steps_match_the_jax_package():
     np.testing.assert_allclose(P, P_ref, rtol=1e-4, atol=1e-12)
 
     key = jax.random.PRNGKey(10)
-    Y0 = carry.tsne_layout_from_jax(np.asarray(1e-4 * jax.random.normal(key, (n, 2))), n)
+    Y0 = carry.tsne_layout_from_jax(np.asarray(1e-4 * jax.random.normal(key, (n, 2))), n, device="cpu")
     ref = np.asarray(jembed._tsne_exact(Xj, key, n_iter=10))
     res = SharpResult(pred_clusters=y + 1, N_pred_cluster=3, unique_pred_clusters=[],
                       distr_pred_clusters={}, viE=viE, x0=x0)
@@ -223,7 +223,7 @@ def test_embedding_p_and_first_steps_match_the_jax_package():
     with pytest.raises(ValueError, match="Y0"):
         tembed.visualization_embedding(res, n_iter=1, Y0=np.zeros((5, 2)), device="cpu")
     with pytest.raises(ValueError, match="Y0"):
-        carry.tsne_layout_from_jax(np.zeros((5, 2)), n)
+        carry.tsne_layout_from_jax(np.zeros((5, 2)), n, device="cpu")
 
 
 def test_embedding_separates_clusters():

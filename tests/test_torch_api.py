@@ -240,16 +240,16 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_carry_checks_shapes():
-    R = carry.rp_from_jax(np.zeros((30, 12), np.float32), 3, 4)
+    R = carry.rp_from_jax(np.zeros((30, 12), np.float32), 3, 4, device="cpu")
     assert R.shape == (30, 12) and R.dtype == torch.float32
     with pytest.raises(ValueError, match="R_all"):
-        carry.rp_from_jax(np.zeros((30, 11), np.float32), 3, 4)
-    probe = carry.testlog_probe_from_jax(np.arange(5)[::-1], np.zeros((30, 4)), 5, 30, 4)
+        carry.rp_from_jax(np.zeros((30, 11), np.float32), 3, 4, device="cpu")
+    probe = carry.testlog_probe_from_jax(np.arange(5)[::-1], np.zeros((30, 4)), 5, 30, 4, device="cpu")
     assert probe.perm.tolist() == [4, 3, 2, 1, 0]
     with pytest.raises(ValueError, match="permutation"):
-        carry.testlog_probe_from_jax(np.zeros(5, int), np.zeros((30, 4)), 5, 30, 4)
+        carry.testlog_probe_from_jax(np.zeros(5, int), np.zeros((30, 4)), 5, 30, 4, device="cpu")
     with pytest.raises(ValueError, match="R_probe"):
-        carry.testlog_probe_from_jax(np.arange(5), np.zeros((30, 3)), 5, 30, 4)
+        carry.testlog_probe_from_jax(np.arange(5), np.zeros((30, 3)), 5, 30, 4, device="cpu")
     perm = carry.shuffle_perm_from_jax(np.array([2, 0, 1]), 3)
     assert perm.tolist() == [2, 0, 1] and perm.dtype == torch.int64
     with pytest.raises(ValueError, match="permutation"):

@@ -485,7 +485,7 @@ def test_sharp_on_card_matches_cpu(dev):
     p = cfg.reduced_ndim
     R = (rng.random((genes, 5 * p)) < 0.05).astype(np.float32) * rng.choice([-1.0, 1.0], (genes, 5 * p))
     probe = carry.testlog_probe_from_jax(
-        rng.permutation(n), rng.choice([-1.0, 0.0, 1.0], (genes, p)), n, genes, p
+        rng.permutation(n), rng.choice([-1.0, 0.0, 1.0], (genes, p)), n, genes, p, device="cpu"
     )
     a = sharp_tpu_torch.sharp(X, rM=R, testlog_probe=probe, device=dev, **kw)
     b = sharp_tpu_torch.sharp(X, rM=R, testlog_probe=probe, device="cpu", **kw)
@@ -519,7 +519,7 @@ def test_large_tier_on_card_matches_cpu(dev):
     draws = dict(
         rM=R,
         testlog_probe=carry.testlog_probe_from_jax(
-            rng.permutation(n), rng.choice([-1.0, 0.0, 1.0], (genes, p)), n, genes, p
+            rng.permutation(n), rng.choice([-1.0, 0.0, 1.0], (genes, p)), n, genes, p, device="cpu"
         ),
         shuffle_perm=carry.shuffle_perm_from_jax(rng.permutation(n), n),
     )
@@ -549,7 +549,7 @@ def test_fold_groups_do_not_change_results_on_card(dev):
     cfg = resolve_config(600, 300, ensize_K=3, partition_ncells=200, rN_seed=2)
     g = torch.Generator(device="cpu").manual_seed(0)
     R = torch.sign(torch.randn((300, 3 * cfg.reduced_ndim), generator=g)).to(dev)
-    runs = [process_folds_grouped(X, [200, 200, 200], 256, R, cfg, True, dev, group=k) for k in (1, 3)]
+    runs = [process_folds_grouped(X, [200, 200, 200], 256, R, cfg, True, group=k, device=dev) for k in (1, 3)]
     for a, b in zip(*runs):
         for k in ("finalC", "n_meta", "counts", "k_per", "overflow"):
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
@@ -654,3 +654,98 @@ def test_global_block_fuse_runs_on_the_card_by_default(dev, monkeypatch, cluster
         assert launched["rnn_round"] >= 2, launched
     tf, remap = card[0][: 26 * clusters], card[1]
     np.testing.assert_array_equal(remap[tf], cpu[1][cpu[0][: 26 * clusters]])
+
+
+def _fold_results(rng, T, nclust, nc_pad, p, n_fold):
+    """Well-separated synthetic fold summaries, as tests/test_large.py
+    makes them (this file imports nothing of the JAX package)."""
+    frs = []
+    for _ in range(T):
+        k = int(rng.integers(max(nclust - 2, 2), nclust + 1))
+        counts = np.zeros(nc_pad, np.float32)
+        counts[:k] = rng.multinomial(n_fold, np.ones(k) / k)
+        cents = np.zeros((nc_pad, p), np.float32)
+        cents[:k] = rng.normal(size=(k, p)) * 4.0
+        frs.append({
+            "finalC": rng.integers(0, k, n_fold).astype(np.int32), "n_meta": k,
+            "cent_sum": cents * counts[:, None], "counts": counts,
+            "k_per": np.full(3, k, np.int32), "maxsil": np.full(3, 0.5, np.float32), "overflow": False,
+        })
+    return frs
+
+
+def test_fuse_folds_positional_n_total_on_card(dev):
+    """`fuse_folds(frs, cfg, N)` on the card: N is the block's cell count,
+    unused; the labels and cluster count of `fuse_folds(frs, cfg)`, on the
+    card and on the CPU."""
+    from sharp_tpu_torch.config import resolve_config
+    from sharp_tpu_torch.core.large import fuse_folds
+
+    cfg = resolve_config(40000, 1000, ensize_K=3, reduced_ndim=32, partition_ncells=500)
+    frs = _fold_results(np.random.default_rng(9), T=4, nclust=6, nc_pad=cfg.nc_pad, p=32, n_fold=500)
+    ref = fuse_folds(frs, cfg, device="cpu")
+    for got in (fuse_folds(frs, cfg, 2000, device=dev), fuse_folds(frs, cfg, device=dev)):
+        np.testing.assert_array_equal(got.labels, ref.labels)
+        assert got.n_final == ref.n_final > 1
+
+
+def test_process_fold_on_card_matches_cpu(dev):
+    """The one-fold program on the card and on the CPU with one RP matrix:
+    labels, cluster and member counts identical, with indN_cluster kept."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synth import make_tpm_like
+
+    from sharp_tpu_torch.config import resolve_config
+    from sharp_tpu_torch.core.large import process_fold
+
+    X, _ = make_tpm_like(n_cells=200, n_genes=300, n_types=4, seed=6)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for indN in (None, 3):
+        cfg = resolve_config(200, 300, ensize_K=3, partition_ncells=200, rN_seed=2, indN_cluster=indN)
+        R = torch.sign(torch.randn((300, 3 * cfg.reduced_ndim), generator=g))
+        a = process_fold(X, 200, 256, R.to(dev), cfg, True, device=dev)
+        b = process_fold(X, 200, 256, R, cfg, True, device="cpu")
+        for k in ("finalC", "n_meta", "counts", "k_per", "overflow"):
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
+        if indN is not None:
+            assert (a["k_per"] == indN).all()
+
+
+@pytest.mark.parametrize("feed", ["dense", "sparse"])
+def test_fold_timing_line_on_card(dev, monkeypatch, capsys, feed):
+    """SHARP_TPU_FOLD_TIMING=1 on the card: one `[fold-timing]` line with
+    the four parts, the fold program's seconds above 0, and the summaries
+    of the pass without it."""
+    import os
+    import re
+    import sys
+
+    import scipy.sparse as sp
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synth import make_tpm_like
+
+    from sharp_tpu_torch.config import resolve_config
+    from sharp_tpu_torch.io.sparse import SparseBlock
+    from sharp_tpu_torch.parallel.sharded import process_folds_grouped
+
+    X, _ = make_tpm_like(n_cells=600, n_genes=300, n_types=4, seed=6)
+    X[X < np.quantile(X, 0.6)] = 0.0
+    data = X if feed == "dense" else SparseBlock.from_scipy(sp.csr_matrix(X))
+    cfg = resolve_config(600, 300, ensize_K=3, partition_ncells=200, rN_seed=2)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    R = torch.sign(torch.randn((300, 3 * cfg.reduced_ndim), generator=g)).to(dev)
+    plain = process_folds_grouped(data, [200, 200, 200], 256, R, cfg, True, 2, device=dev)
+    monkeypatch.setenv("SHARP_TPU_FOLD_TIMING", "1")
+    timed = process_folds_grouped(data, [200, 200, 200], 256, R, cfg, True, 2, device=dev)
+    lines = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("[fold-timing]")]
+    assert len(lines) == 1
+    parts = dict(re.findall(r"(\w+_s)=(\d+\.\d\d)", lines[0]))
+    assert list(parts) == ["slice_s", "transfer_s", "device_s", "readback_s"], lines[0]
+    assert float(parts["device_s"]) > 0.0
+    for a, b in zip(timed, plain):
+        for k in ("finalC", "n_meta", "counts", "k_per", "overflow"):
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))

@@ -108,15 +108,15 @@ def test_fold_groups_do_not_change_results(fold_case):
     """One fold per call and all folds in one call give the same summaries."""
     cfg, X, R = fold_case["cfg"], fold_case["X"], torch.from_numpy(fold_case["R"])
     runs = [
-        process_folds_grouped(X, fold_case["sizes"], 256, R, cfg, True, "cpu", group=g)
+        process_folds_grouped(X, fold_case["sizes"], 256, R, cfg, True, group=g, device="cpu")
         for g in (1, 2)
     ]
     for a, b in zip(*runs):
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
-    assert auto_group(2048, 27998, 5, "cpu") == 4    # an 8 GiB budget on the CPU
-    assert auto_group(256, 300, 3, "cpu") == 16
+    assert auto_group(2048, 27998, K=5, device="cpu") == 4    # an 8 GiB budget on the CPU
+    assert auto_group(256, 300, K=3, device="cpu") == 16
 
 
 def test_fold_sizes_and_smetac_range_match_jax():
@@ -141,6 +141,99 @@ def test_fuse_folds_matches_jax(T):
     np.testing.assert_allclose(got.cents, ref.cents, rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(got.counts, ref.counts)
     np.testing.assert_allclose(got.x0, ref.x0, atol=1e-6)
+
+
+def test_fuse_folds_takes_n_total_third_as_jax():
+    """`fuse_folds(frs, cfg, N)` and `fuse_folds(frs, cfg, n_total=N)`: the
+    third parameter is the block's cell count, unused, in both packages (it
+    once became `finalN_cluster` in the port and forced N clusters)."""
+    rng = np.random.default_rng(9)
+    cfg = resolve_config(40000, 1000, ensize_K=3, reduced_ndim=32, partition_ncells=500)
+    frs = _fake_fold_results(rng, T=4, nclust=6, nc_pad=cfg.nc_pad, p=32, n_fold=500)
+    ref = jlarge.fuse_folds(frs, cfg, 2000)
+    assert ref.n_final > 1
+    for got in (tlarge.fuse_folds(frs, cfg, 2000, device="cpu"),
+                tlarge.fuse_folds(frs, cfg, n_total=2000, device="cpu"),
+                tlarge.fuse_folds(frs, cfg, 2000, None, device="cpu")):
+        np.testing.assert_array_equal(got.labels, ref.labels)
+        assert got.n_final == ref.n_final
+    fixed, jfixed = tlarge.fuse_folds(frs, cfg, 2000, 3, device="cpu"), jlarge.fuse_folds(frs, cfg, 2000, 3)
+    np.testing.assert_array_equal(fixed.labels, jfixed.labels)
+    assert fixed.n_final == jfixed.n_final
+
+
+def test_fuse_blocks_group_bounds_each_call():
+    """`fuse_blocks(..., group)` fuses at most `group` blocks a call, as
+    the JAX package's: the same results for every group."""
+    rng = np.random.default_rng(4)
+    cfg = resolve_config(40000, 1000, ensize_K=3, reduced_ndim=32, partition_ncells=500)
+    blocks = [_fake_fold_results(rng, T=4, nclust=6, nc_pad=cfg.nc_pad, p=32, n_fold=500) for _ in range(5)]
+    ref = jlarge.fuse_blocks(blocks, cfg, None, 3)
+    calls = []
+    real = tlarge.smetac
+
+    def counted(cents, *a, **k):
+        calls.append(cents.shape[0])
+        return real(cents, *a, **k)
+
+    tlarge.smetac = counted
+    try:
+        runs = {g: tlarge.fuse_blocks(blocks, cfg, None, g, device="cpu") for g in (1, 2, 8)}
+    finally:
+        tlarge.smetac = real
+    assert max(calls) <= 8 and len(calls) >= 5 + 3
+    for got in runs.values():
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a.labels, b.labels)
+            assert a.n_final == b.n_final
+
+
+@pytest.mark.parametrize("indN", [None, 3])
+def test_process_fold_and_summary_to_host_match_jax(indN):
+    """One fold (170 real cells of 256) through each package's one-fold
+    program, the port's a group of one through its fold program, with the
+    JAX package's RP matrices; `indN_cluster` is kept. Then each package's
+    `summary_to_host` of one fold summary, without the view planes."""
+    genes, K, B, n = 300, 3, 256, 170
+    cfg = resolve_config(n, genes, ensize_K=K, partition_ncells=200, rN_seed=3, indN_cluster=indN)
+    R = _jax_draws(n, genes, K, cfg.reduced_ndim, 3)["R"]
+    X, _ = make_tpm_like(n_cells=n, n_genes=genes, n_types=4, seed=11)
+    ref = jlarge.process_fold(X, n, B, jnp.asarray(R), cfg, True)
+    got = tlarge.process_fold(X, n, B, torch.from_numpy(R), cfg, True, device="cpu")
+    assert got.keys() == ref.keys() and "x0" in got
+    garbage = cfg.nc_pad - 1
+    mine, mp = _relabel(got["finalC"], garbage)
+    theirs, tp = _relabel(ref["finalC"], garbage)
+    np.testing.assert_array_equal(mine, theirs)
+    order_m = [c for c, _ in sorted(mp.items(), key=lambda kv: kv[1])]
+    order_t = [c for c, _ in sorted(tp.items(), key=lambda kv: kv[1])]
+    np.testing.assert_array_equal(got["counts"][order_m], ref["counts"][order_t])
+    assert got["n_meta"] == ref["n_meta"] and got["overflow"] == ref["overflow"]
+    np.testing.assert_array_equal(got["k_per"], ref["k_per"])
+    if indN is not None:
+        assert (got["k_per"] == indN).all()
+    np.testing.assert_allclose(got["maxsil"], ref["maxsil"], atol=1e-5)
+    for k in ("mean_proj", "x0"):
+        assert got[k].shape == ref[k].shape
+    np.testing.assert_allclose(got["mean_proj"], ref["mean_proj"], rtol=1e-5, atol=1e-4)
+
+    static = jfold.fold_static_args(cfg)
+    Xp = np.zeros((B, genes), np.float32)
+    Xp[:n] = X
+    mask = np.arange(B) < n
+    js = jfold.fold_program(jnp.asarray(Xp), jnp.asarray(mask), jnp.asarray(n), jnp.asarray(R),
+                            jnp.asarray(True), None, has_indN=False, **static)
+    ts = tfold.fold_program(torch.from_numpy(Xp), torch.from_numpy(mask), n, torch.from_numpy(R), True,
+                            None, **tfold.fold_static_args(cfg))
+    a, b = tlarge.summary_to_host(ts, n, forview=False), jlarge.summary_to_host(js, n, forview=False)
+    assert a.keys() == b.keys() and "x0" not in a
+    assert a["finalC"].shape == b["finalC"].shape == (n,)
+    assert a["n_meta"] == b["n_meta"] and type(a["overflow"]) is type(b["overflow"]) is bool
+    np.testing.assert_array_equal(a["k_per"], b["k_per"])
+    # the batched pull gives the same dicts
+    batched = tlarge.summaries_to_host(tfold.FoldSummary(*(x[None] for x in ts)), [n], False)[0]
+    for k in a:
+        np.testing.assert_array_equal(np.asarray(batched[k]), np.asarray(a[k]))
 
 
 def test_smetac_matches_jax():
@@ -205,7 +298,7 @@ def large_case(request):
     ref = sharp_tpu.sharp(X, rM=d["R"], **kw)
     got = sharp_tpu_torch.sharp(
         X, rM=d["R"], device="cpu",
-        testlog_probe=carry.testlog_probe_from_jax(d["testlog_perm"], d["R_probe"], n, genes, cfg.reduced_ndim),
+        testlog_probe=carry.testlog_probe_from_jax(d["testlog_perm"], d["R_probe"], n, genes, cfg.reduced_ndim, device="cpu"),
         shuffle_perm=carry.shuffle_perm_from_jax(d["shuffle_perm"], n),
         **kw,
     )
@@ -258,7 +351,7 @@ def test_indN_cluster_holds_for_one_fold_only_as_in_jax(n, partition_ncells):
     ref = sharp_tpu.sharp(X, rM=d["R"], **kw)
     got = sharp_tpu_torch.sharp(
         X, rM=d["R"], device="cpu",
-        testlog_probe=carry.testlog_probe_from_jax(d["testlog_perm"], d["R_probe"], n, genes, cfg.reduced_ndim),
+        testlog_probe=carry.testlog_probe_from_jax(d["testlog_perm"], d["R_probe"], n, genes, cfg.reduced_ndim, device="cpu"),
         shuffle_perm=carry.shuffle_perm_from_jax(d["shuffle_perm"], n),
         **kw,
     )

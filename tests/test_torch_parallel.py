@@ -124,7 +124,7 @@ def jax_case():
     d = _jax_draws(n, genes, cfg.ensize_K, cfg.reduced_ndim, kw["rN_seed"])
     draws = dict(
         rM=d["R"],
-        testlog_probe=carry.testlog_probe_from_jax(d["testlog_perm"], d["R_probe"], n, genes, cfg.reduced_ndim),
+        testlog_probe=carry.testlog_probe_from_jax(d["testlog_perm"], d["R_probe"], n, genes, cfg.reduced_ndim, device="cpu"),
         shuffle_perm=carry.shuffle_perm_from_jax(d["shuffle_perm"], n),
     )
     loop = sharp_tpu_torch.sharp(X, device="cpu", **draws, **kw)

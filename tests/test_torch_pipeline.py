@@ -57,7 +57,7 @@ def block_case():
     )
     got = t_block(
         torch.from_numpy(Xp), torch.from_numpy(mask), n,
-        carry.rp_from_jax(R, K, cfg.reduced_ndim), cfg.maxN_cluster, True, **kw,
+        carry.rp_from_jax(R, K, cfg.reduced_ndim, device="cpu"), cfg.maxN_cluster, True, **kw,
     )
     return dict(n=n, K=K, cfg=cfg, mask=mask, ref=ref, got=got)
 
@@ -112,7 +112,7 @@ def test_testlog_decide_matches_jax():
     cfg = resolve_config(n, genes)
     _, perm, R_probe = _jax_draws(n, genes, 1, cfg.reduced_ndim, 3)
     ref = j_testlog(X, cfg, jprng.seed_to_key(3))
-    probe = carry.testlog_probe_from_jax(perm, R_probe, n, genes, cfg.reduced_ndim)
+    probe = carry.testlog_probe_from_jax(perm, R_probe, n, genes, cfg.reduced_ndim, device="cpu")
     assert t_testlog(torch.from_numpy(X), cfg, 3, probe=probe) == ref
 
 
@@ -128,8 +128,8 @@ def test_sharp_end_to_end_matches_jax(n, genes, types, seed, rN_seed):
     ref = sharp_tpu.sharp(X, **kw)
     got = sharp_tpu_torch.sharp(
         X,
-        rM=carry.rp_from_jax(R, 5, cfg.reduced_ndim),
-        testlog_probe=carry.testlog_probe_from_jax(perm, R_probe, n, genes, cfg.reduced_ndim),
+        rM=carry.rp_from_jax(R, 5, cfg.reduced_ndim, device="cpu"),
+        testlog_probe=carry.testlog_probe_from_jax(perm, R_probe, n, genes, cfg.reduced_ndim, device="cpu"),
         device="cpu",
         **kw,
     )
@@ -170,7 +170,7 @@ def test_alternative_hmethod_matches_jax():
     ref = sharp_tpu.sharp(X, **kw)
     got = sharp_tpu_torch.sharp(
         X, rM=R, device="cpu",
-        testlog_probe=carry.testlog_probe_from_jax(perm, R_probe, n, genes, cfg.reduced_ndim),
+        testlog_probe=carry.testlog_probe_from_jax(perm, R_probe, n, genes, cfg.reduced_ndim, device="cpu"),
         **kw,
     )
     np.testing.assert_array_equal(got.pred_clusters, ref.pred_clusters)

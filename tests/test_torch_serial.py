@@ -127,8 +127,8 @@ def test_sharp_pallas_bf16_matches_jax(monkeypatch):
     ref = sharp_tpu.sharp(X, **kw)
     got = sharp_tpu_torch.sharp(
         X,
-        rM=carry.rp_from_jax(R, K, cfg.reduced_ndim),
-        testlog_probe=carry.testlog_probe_from_jax(perm, R_probe, n, genes, cfg.reduced_ndim),
+        rM=carry.rp_from_jax(R, K, cfg.reduced_ndim, device="cpu"),
+        testlog_probe=carry.testlog_probe_from_jax(perm, R_probe, n, genes, cfg.reduced_ndim, device="cpu"),
         device="cpu",
         **kw,
     )

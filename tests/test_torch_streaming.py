@@ -80,8 +80,94 @@ def test_sblk_files_are_byte_compatible(tmp_path, ints):
         np.testing.assert_allclose(native.densify(path), ref, rtol=1e-6)
     with open(str(tmp_path / "bad.sblk"), "wb") as fh:
         fh.write(b"NOTSBLK" + bytes(40))
-    with pytest.raises(IOError, match="not an SBLK"):
+    # the codec's error code for a bad magic, as the JAX package's; the
+    # plain parser's message
+    with pytest.raises(IOError, match="rc=5"):
         native.read_header(str(tmp_path / "bad.sblk"))
+    with pytest.raises(IOError, match="rc=5"):
+        jnative.read_header(str(tmp_path / "bad.sblk"))
+    with pytest.raises(IOError, match="not an SBLK"):
+        native._py_read_header(str(tmp_path / "bad.sblk"))
+
+
+def _codec_case(tmp_path, ints):
+    """An SBLK file of 211 x 300 with empty rows (first, last and in the
+    middle) and a full row, float32 or uint16 values."""
+    M = _random_sparse(211, 300, 0.1, seed=5, ints=ints).tolil()
+    M[[0, 50, 51, 210]] = 0
+    M[100] = np.arange(1, 301)
+    path = str(tmp_path / f"codec_{int(ints)}.sblk")
+    native.write_sblk(path, M.tocsr())
+    return path
+
+
+@pytest.mark.parametrize("ints", [False, True])
+@pytest.mark.parametrize("n_threads", [1, 3, 0])
+def test_native_densify_matches_jax_and_the_plain_version(tmp_path, ints, n_threads):
+    """The port's codec (built with g++ at first use) densifies bit for bit
+    as the JAX package's codec and as the numpy plain version, at any
+    thread count (0: all cores)."""
+    assert native.get_lib() is not None
+    path = _codec_case(tmp_path, ints)
+    assert native.read_header(path)[3] == int(ints)
+    got = native.densify(path, n_threads)
+    assert got.dtype == np.float32 and got.shape == (211, 300)
+    np.testing.assert_array_equal(got, native._py_densify(path))
+    np.testing.assert_array_equal(got, jnative.densify(path, n_threads))
+    assert not got[[0, 50, 51, 210]].any() and (got[100] == np.arange(1, 301)).all()
+
+
+def test_native_codec_errors(tmp_path):
+    """A corrupt header raises IOError with the codec's code (5 a bad magic,
+    6 a truncated payload, 7 an indptr that does not end at nnz), as in the
+    JAX package."""
+    path = _codec_case(tmp_path, False)
+    raw = open(path, "rb").read()
+    n, g, nnz, _ = native.read_header(path)
+    cases = {
+        5: b"SBLK2\0\0\0" + raw[8:],
+        6: raw[: len(raw) - 8],
+        7: raw[: 40 + 8 * n] + np.int64(nnz - 1).tobytes() + raw[40 + 8 * (n + 1):],
+    }
+    for rc, data in cases.items():
+        bad = str(tmp_path / f"bad{rc}.sblk")
+        open(bad, "wb").write(data)
+        for densify in (native.densify, jnative.densify):
+            with pytest.raises(IOError, match=f"rc={rc}"):
+                densify(bad)
+
+
+def test_native_build(monkeypatch, tmp_path):
+    """The codec is built into SHARP_TPU_NATIVE_CACHE, keyed on its source;
+    without g++ there is no codec and densify takes the plain version; a
+    build that fails with g++ present raises."""
+    path = _codec_case(tmp_path, True)
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("SHARP_TPU_NATIVE_CACHE", str(cache))
+    lib = native._build_lib()
+    assert lib is not None and [p.name for p in cache.iterdir()] == [os.path.basename(lib._name)]
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    assert native.get_lib() is None
+    np.testing.assert_array_equal(native.densify(path), native._py_densify(path))
+    monkeypatch.undo()
+    broken = tmp_path / "broken.cpp"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setenv("SHARP_TPU_NATIVE_CACHE", str(cache))
+    monkeypatch.setattr(native, "SRC", broken)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native._build_lib()
+
+
+def test_blockstore_loads_sblk_through_the_codec(tmp_path, monkeypatch):
+    """BlockStore.load reads an SBLK file through the codec's densify."""
+    path = _codec_case(tmp_path, False)
+    calls = []
+    real = native.densify
+    monkeypatch.setattr(native, "densify", lambda p, n_threads=0: calls.append(p) or real(p, n_threads))
+    np.testing.assert_array_equal(BlockStore.load(path), native._py_densify(path))
+    assert calls == [path]
 
 
 def test_blockstore_roundtrip(tmp_path, blocked_data):
@@ -138,6 +224,26 @@ def _wire_case():
     return X, [0, 120, 240, 250], [120, 120, 10, 30], 128
 
 
+def _which_side_moved(got, ref, raw):
+    """Each side's log2(1 + x) against numpy's float64 log2(1 + x) of the
+    same densified values: how many values are more than 2 float32 ulps off,
+    and the largest error in ulps."""
+    exact = np.log2(1.0 + raw.astype(np.float64))
+    ulp = np.spacing(np.abs(exact).astype(np.float32)).astype(np.float64)
+    out = []
+    for name, side in (("the port (torch)", got), ("the JAX package (XLA)", ref)):
+        err = np.abs(side.astype(np.float64) - exact) / ulp
+        far = np.nonzero(err > 2)
+        out.append(f"{name}: {far[0].size} of {err.size} values more than 2 ulps from float64, "
+                   f"the largest {err.max():.1f} ulps")
+        worst = np.unravel_index(np.argmax(err), err.shape)
+        out[-1] += f" (x={raw[worst]!r}: {side[worst]!r} against {exact[worst]!r})"
+        if far[0].size:
+            out[-1] += (f", in folds {sorted(set(far[0].tolist()))}, rows {far[1].min()}-{far[1].max()}, "
+                        f"genes {far[2].min()}-{far[2].max()}")
+    return "; ".join(out)
+
+
 @pytest.mark.parametrize("wire", ["float32", "bfloat16"])
 def test_fold_triplets_and_densify_match_jax(wire):
     X, starts, sizes, block_pad = _wire_case()
@@ -161,11 +267,14 @@ def test_fold_triplets_and_densify_match_jax(wire):
         ))
         got = sparse.densify_folds(c, col, v, block_pad=block_pad, genes=200, log2p1=log2p1)
         if log2p1:
-            # the same float32 log2 of the same values, in XLA and in torch
-            np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6)
+            # the same float32 log2 of the same values, in XLA and in torch;
+            # on a mismatch the message says which side left numpy's float64
+            np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6,
+                                       err_msg=_which_side_moved(got.numpy(), ref, raw))
             np.testing.assert_array_equal(got.numpy() == 0, ref == 0)
         else:
             np.testing.assert_array_equal(got.numpy(), ref)
+            raw = ref
     if wire == "float32":
         dense = sparse.densify_folds(c, col, v, block_pad=block_pad, genes=200).numpy()
         for gi, (s, z) in enumerate(zip(starts, sizes)):
@@ -352,10 +461,69 @@ def test_auto_group_sparse_branch(monkeypatch):
     monkeypatch.setattr(sharded, "memory_budget_bytes", lambda dev: 8 << 30)
     # dense: 3 x 229 MB + 5 x 5 x 16.8 MB per fold -> 7 folds fit -> 4;
     # sparse: 2 x 229 MB + 419 MB -> 9 fit -> 8
-    assert sharded.auto_group(2048, 27998, 5, "cpu") == 4
-    assert sharded.auto_group(2048, 27998, 5, "cpu", sparse=True) == 8
+    assert sharded.auto_group(2048, 27998, K=5, device="cpu") == 4
+    assert sharded.auto_group(2048, 27998, sparse=True, K=5, device="cpu") == 8
     monkeypatch.setattr(sharded, "memory_budget_bytes", lambda dev: 1 << 28)
-    assert sharded.auto_group(2048, 27998, 5, "cpu", sparse=True) == 1
+    assert sharded.auto_group(2048, 27998, sparse=True, K=5, device="cpu") == 1
+
+
+def test_auto_group_under_the_hbm_budget(monkeypatch):
+    """`SHARP_TPU_HBM_BUDGET` (bytes) is the memory budget, as in the JAX
+    package (tests/test_streaming.py:314-329): a group of 1 at 256 MiB and
+    the cap of 16 at 1 TiB in both packages, on both feeds; between them the
+    port's model of a fold's working set (the linkage matrices besides the
+    dense fold) gives smaller groups, and a smaller budget never a larger
+    group."""
+    from sharp_tpu.parallel import sharded as jsharded
+    from sharp_tpu_torch.parallel import sharded
+
+    monkeypatch.setenv("SHARP_TPU_HBM_BUDGET", str(1 << 28))
+    assert sharded.memory_budget_bytes("cpu") == sharded.hbm_budget_bytes() == jsharded.hbm_budget_bytes() == 1 << 28
+    for budget, want in ((1 << 28, 1), (1 << 40, 16)):
+        monkeypatch.setenv("SHARP_TPU_HBM_BUDGET", str(budget))
+        for sp_ in (False, True):
+            assert jsharded.auto_group(2048, 27998, sparse=sp_) == want
+            assert sharded.auto_group(2048, 27998, sp_, K=5, device="cpu") == want
+            assert sharded.auto_group(2048, 27998, sp_, 4, K=5, device="cpu") == min(want, 4)
+    for sp_ in (False, True):
+        groups = []
+        for budget in (1 << 28, 1 << 31, 4 << 30, 8 << 30, 12 << 30, 16 << 30, 1 << 40):
+            monkeypatch.setenv("SHARP_TPU_HBM_BUDGET", str(budget))
+            groups.append(sharded.auto_group(2048, 27998, sp_, K=5, device="cpu"))
+            assert groups[-1] <= jsharded.auto_group(2048, 27998, sparse=sp_)
+        assert groups == sorted(groups) and groups[0] == 1 and groups[-1] == 16, groups
+    monkeypatch.setenv("SHARP_TPU_HBM_BUDGET", str(8 << 30))
+    assert sharded.auto_group(2048, 27998, K=5, device="cpu") == 4
+    assert sharded.auto_group(2048, 27998, True, K=5, device="cpu") == 8
+
+
+@pytest.mark.parametrize("feed", ["dense", "sparse"])
+def test_fold_timing_line(monkeypatch, capsys, feed):
+    """`SHARP_TPU_FOLD_TIMING=1` prints the JAX package's `[fold-timing]`
+    line with its four keys to stderr after the grouped pass, on both feeds,
+    and changes no summary; without it, no line."""
+    import re
+
+    from sharp_tpu_torch.parallel.sharded import process_folds_grouped
+
+    X, _ = make_tpm_like(n_cells=360, n_genes=200, n_types=3, seed=8)
+    X[X < np.quantile(X, 0.6)] = 0.0
+    cfg = resolve_config(360, 200, ensize_K=2, partition_ncells=120, rN_seed=2)
+    R = torch.from_numpy(ternary(np.random.default_rng(1), 200, 2 * cfg.reduced_ndim))
+    data = X if feed == "dense" else sparse.SparseBlock.from_scipy(sp.csr_matrix(X))
+    plain = process_folds_grouped(data, [120] * 3, 128, R, cfg, True, 2, device="cpu")
+    assert "[fold-timing]" not in capsys.readouterr().err
+    monkeypatch.setenv("SHARP_TPU_FOLD_TIMING", "1")
+    timed = process_folds_grouped(data, [120] * 3, 128, R, cfg, True, 2, device="cpu")
+    lines = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("[fold-timing]")]
+    assert len(lines) == 1
+    m = re.fullmatch(r"\[fold-timing\] slice_s=(\d+\.\d\d) transfer_s=(\d+\.\d\d) "
+                     r"device_s=(\d+\.\d\d) readback_s=(\d+\.\d\d)", lines[0])
+    assert m, lines[0]
+    assert float(m.group(3)) > 0.0   # the fold program ran
+    for a, b in zip(timed, plain):
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
 
 
 def test_sparse_feed_equals_dense_feed_for_any_group():
@@ -372,12 +540,12 @@ def test_sparse_feed_equals_dense_feed_for_any_group():
     cfg = resolve_config(600, 300, ensize_K=3, partition_ncells=120, rN_seed=2)
     R = torch.from_numpy(ternary(np.random.default_rng(0), 300, 3 * cfg.reduced_ndim))
     sizes = [120] * 5
-    dense = process_folds_grouped(X, sizes, 128, R, cfg, True, "cpu", group=5)
+    dense = process_folds_grouped(X, sizes, 128, R, cfg, True, group=5, device="cpu")
     sb = sparse.SparseBlock.from_scipy(sp.csr_matrix(X))
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        runs = [process_folds_grouped(sb, sizes, 128, R, cfg, True, "cpu", group=g) for g in (1, 2)]
+        runs = [process_folds_grouped(sb, sizes, 128, R, cfg, True, group=g, device="cpu") for g in (1, 2)]
     finally:
         sys.setswitchinterval(old)
     for got in runs:
