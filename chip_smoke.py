@@ -5,7 +5,8 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-  1. build    nvcc builds the four hand-written kernels (csrc/*.cu) into
+  1. build    nvcc builds the hand-written kernels (csrc/*.cu: serial Ward,
+              the cut replay, the ladder's tail and its round) into
               build/kernels/, one nvcc per source, all at once.
   2. data     the flagship block: 50,000 cells x 27,998 genes, 10 planted
               types (tests/synth.py, data seed 0), made once on the host.
@@ -23,9 +24,20 @@ Phases, in order; any failure raises and the script exits non-zero:
               merge). Large-tier shapes, from the
               first fold group of the flagship block (G=16 folds x K=5
               members of 2,000 cells at n_pad 2048), in f32 and in bf16
-              storage: the round kernel on the inputs of the first round at
-              levels 2048 and 1024 (matrix, row minima and argmins
-              identical); the ladder tail at (80, 256) on the survivor state
+              storage: every round of the ladder through the round kernel
+              against the plain round on a copy of the ladder (matrix, row
+              cache, cluster and merge state identical), and the first round
+              at levels 2048 and 1024 timed from its saved state, its bound
+              counted from what the round needs (`round_bytes`: rows a and
+              b of the real pairs and the rows whose cached minimum grew
+              read, the changed entries written) and by the earlier
+              kernel's count (all of W read and written); the bench's
+              last fold group (14 folds of 2,000 cells, 2 of 1,063 and
+              1,064, whose pads merge one pair a round): every round held
+              the same way, the whole ladder's merges and heights identical
+              to plain rounds, its time, rounds launched and with a lane
+              active, host reads, and round 60 of level 1024 (10 of 80 lanes
+              live, one pair each) timed; the ladder tail at (80, 256) on the survivor state
               the ladder compacts the group down to; the whole ladder with
               kernel rounds against the same rounds finished by the plain
               tail and against plain rounds (round_impl="xla"), merges and
@@ -34,12 +46,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               storage types) and the cut replay on the wMetaC problem (1,
               256) and on a fold group's 16 wMetaC problems (16, 256), the
               shape wMetaC gives them now. Median times from CUDA events
-              (kernels 20 launches, plain versions 3), and each kernel's
+              (kernels 20 calls, plain versions 3), and each kernel's
               bound: its bytes over 3.35 TB/s or its float32 operations over
               67 TFLOP/s, whichever is larger. The cut replay's launch floor:
               the same kernel on a two-cell problem. The route each tail lane
               and each cut-replay problem took (ROUTES). At the very end of
-              the run, after every wall is taken, the four kernels are timed
+              the run, after every wall is taken, the kernels are timed
               again alone on the card with torch.profiler (device_ms),
               without the host's share of a call.
   4. slice    the small tier: sharp_tpu_torch.sharp(X, rN_seed=2103,
@@ -169,7 +181,10 @@ of phase 5 (b), in phase 7 (a)'s gethclust calls, in phase 8 (b), the
 flagship block over two shards, in phase 9's whole run and in phase 10
 (a)), its largest difference from the plain version, its time
 per call (and device_ms, the kernel alone), the plain version's, its bound
-and what bounds it. No single PyTorch call
+and what bounds it. The ladder round's wrapper launches two kernels, each
+listed: rnn_pairs (the pairs' selection and fresh rows) and rnn_round (the
+scatter and the next row cache); their plain version is the plain round.
+No single PyTorch call
 computes any of these functions, so library_ms is null. The full record
 goes to chiprun_out/chip_smoke.json. Without a CUDA device the script exits
 1 and prints no result; it imports nothing of JAX or of the JAX package and
@@ -228,8 +243,9 @@ def _median_ms(fn, reps):
 def _device_ms(fn, kernel, reps=KERNEL_REPS):
     """The kernel's own time on the card (CUPTI, through torch.profiler): the
     mean duration of the device kernels whose name holds `kernel` over
-    `reps` calls of fn, without the host's share of a call. None where the
-    profiler saw no such kernel."""
+    `reps` calls of fn, without the host's share of a call; for a tuple of
+    names (kernels that fn launches once each), the sum of each kernel's
+    mean. None where the profiler saw no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -239,12 +255,16 @@ def _device_ms(fn, kernel, reps=KERNEL_REPS):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total, count = 0.0, 0
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    total, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
     for ev in prof.key_averages():
-        if kernel in ev.key:
-            total += getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
-            count += ev.count
-    return total / count / 1e3 if count and total > 0 else None
+        for name in names:
+            if name in ev.key:
+                total[name] += getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+                count[name] += ev.count
+    if not all(count[name] and total[name] > 0 for name in names):
+        return None
+    return sum(total[name] / count[name] for name in names) / 1e3
 
 
 # the kernels' own times, taken after every wall of the run (see main)
@@ -457,10 +477,11 @@ def _hold_cutree(name, merges, nr, ncand, minN=2, row=None):
     return row
 
 
-def _fold_group_distances(X, dev):
-    """The first fold group of the large path on X: G=16 folds of 2,000
-    cells at n_pad 2048, log2, projected K ways with one ternary RP matrix
-    -> (G*K, 2048, 2048) Pearson distances and the real counts."""
+def _fold_group_distances(X, dev, sizes=None, cfg=None):
+    """A fold group of the large path on X: G=16 folds (of 2,000 cells, or
+    `sizes`) at n_pad 2048, log2, projected K ways with one ternary RP
+    matrix -> (G*K, 2048, 2048) Pearson distances and the config (X's own,
+    or `cfg`'s K and projection width)."""
     import torch
 
     from sharp_tpu_torch.config import pad_dim, resolve_config
@@ -469,16 +490,18 @@ def _fold_group_distances(X, dev):
     from sharp_tpu_torch.utils.prng import fixed_generator
 
     n, genes = X.shape
-    cfg = resolve_config(n, genes, **SEED_KW)
+    cfg = cfg or resolve_config(n, genes, **SEED_KW)
     K, p, B = cfg.ensize_K, cfg.reduced_ndim, pad_dim(FOLD)
+    sizes = sizes or (FOLD,) * GROUP
     Xg = torch.zeros((GROUP, B, genes), device=dev)
-    for g in range(GROUP):
-        Xg[g, :FOLD] = torch.from_numpy(X[g * FOLD : (g + 1) * FOLD]).to(dev)
+    for g, z in enumerate(sizes):
+        Xg[g, :z] = torch.from_numpy(X[g * FOLD : g * FOLD + z]).to(dev)
     R = ternary_rp_matrix(fixed_generator(0, dev), genes, K * p)
     proj = rp_project_ensemble(torch.log2(1.0 + Xg).reshape(GROUP * B, genes), R, K=K)
     del Xg
     proj = proj.reshape(K, GROUP, B, p).transpose(0, 1).reshape(GROUP * K, B, p)
-    mask = (torch.arange(B, device=dev) < FOLD).expand(GROUP * K, B)
+    n_real = torch.tensor(sizes, device=dev).repeat_interleave(K)
+    mask = torch.arange(B, device=dev)[None, :] < n_real[:, None]
     D, _, _ = prep_distance(proj * mask[..., None], mask, symmetric=False)
     return D.contiguous(), cfg
 
@@ -529,12 +552,16 @@ def phase_kernels(dev, record, Xbig, ybig):
     tail, rounds, rounds_per_level, ladders = {}, {}, {}, {}
     links = {}
     for store_name, store in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        # the ladder with kernel rounds, keeping the inputs of the first
-        # round at each level and the survivor state it compacts down to
-        ladder, first, per_level = _capture_rounds(D, store)
+        # the ladder with kernel rounds, every round held against the plain
+        # round, keeping the state before the first round at each level and
+        # the survivor state it compacts down to
+        ladder, first, per_level, held = _capture_rounds(D, store)
+        print(f"[kernels] rnn_round {store_name}: {held} rounds of the ladder ({L}, {D.shape[-1]}) each "
+              f"identical to the plain round (matrix, row cache, cluster and merge state); rounds per level "
+              f"{per_level}", flush=True)
         # the first round at the two largest levels (2048 and 1024 here)
         rounds[store_name] = {
-            m: _hold_round(f"rnn_round {store_name} m={m}", first[m])
+            m: _hold_round(f"rnn_round {store_name} m={m} first round", first[m])
             for m in sorted(first, reverse=True)[:2]
         }
         rounds_per_level[store_name] = per_level
@@ -602,11 +629,14 @@ def phase_kernels(dev, record, Xbig, ybig):
         )
         torch.cuda.empty_cache()
     record["ladder_80x2048_ms"] = ladders
+    del D
+    torch.cuda.empty_cache()
+    record["pad_group"] = _pad_group(dev, Xbig, rounds)
     record["rnn_tail"] = tail
     record["rnn_round"] = {st: {str(m): row for m, row in r.items()} for st, r in rounds.items()}
     record["rnn_round_rounds_per_level"] = {st: {str(m): c for m, c in r.items()} for st, r in rounds_per_level.items()}
     big = _hold_cutree("cutree_80x2048", links["f32"].merges, [FOLD] * L, 39)
-    big["shape"] = [L, D.shape[-1]]
+    big["shape"] = list(links["f32"].merges.shape[:2])
     rows["cutree_80x2048"] = big
     print(
         f"[kernels] cutree_80x2048 on the ladder's merges: identical to the plain replay; "
@@ -627,7 +657,7 @@ def phase_kernels(dev, record, Xbig, ybig):
     print(f"[kernels] cutree launch floor (1, 2): {floor}", flush=True)
     _device_ms_later(floor, "device_ms", lambda: cutree_snapshots_kernel(pair, two, minN=2, ncand=39),
                      "cutree_kernel", "cutree launch floor (1, 2)")
-    del D, links
+    del links
     D, n_real = _wmetac_problem(dev, big_cfg, [ybig[:FOLD]], pad_dim(FOLD), seed=2)
     _hold_ward_and_cutree("ward_wmetac_fold", D, n_real, rows)
     # the shape the main path gives both kernels now: one fold group's 16
@@ -640,71 +670,263 @@ def phase_kernels(dev, record, Xbig, ybig):
     return rows, tail, rounds
 
 
-def _capture_rounds(D, store):
-    """The ladder over D with kernel rounds; returns the ladder (compacted
-    to its tail), copies of the inputs of the first round at each level
-    size, and the number of rounds per level."""
+LADDER_FIELDS = ("D", "alive", "sizes", "gidx", "lasth", "merges", "heights", "cnt", "rounds")
+# the bench's last fold group (PERF.md section 5 (o)): 14 folds of 2,000
+# cells and its folds of 1,063 and 1,064, whose ~985 pad rows merge one pair
+# a round
+PAD_GROUP = (FOLD,) * (GROUP - 2) + (1063, 1064)
+# the pad round held and timed: this round of level 1024 of PAD_GROUP, when
+# only the 10 lanes of the two short folds are live, one pair each
+PAD_ROUND = (1024, 60)
+
+
+def round_bytes(before, after, P):
+    """The bytes one ladder round must move, from the ladder states before
+    and after it (the row cache of both set), each input read once and each
+    output written once. Reads: every lane's alive flags and counters; the
+    active lanes' row cache (the selection); the live lanes' sizes (those
+    with a pair: the fresh rows); lasth and gidx at the pairs; rows a and b
+    of each real pair; the rows whose cached minimum's column grew, whose
+    minimum no cache can give. Writes: the changed entries of W and of the
+    row cache; sizes, lasth, alive, merges and heights at the pairs; the
+    active lanes' counters. The pairs' fresh rows are a buffer inside the
+    round, not an output. Returns a dict of that count ("bytes"), the count
+    with W of the live lanes read whole in place of those rows
+    ("live_w_bytes"), the earlier kernel's count (all of W read and
+    written, the (L, P, m) fresh rows and the column codes read, the row
+    cache written: "old_bytes"), the pairs' kernels' own count (the
+    selection's reads and writes, rows a and b read, the fresh rows, pair-
+    pair entries, column codes and pair slots written: "pairs_bytes"), and
+    the live lanes, real pairs, rows read again and changed entries."""
+    W0, W1 = before.D, after.D
+    L, m, _ = W0.shape
+    es = W0.element_size()
+    pairs = after.cnt - before.cnt
+    live = pairs > 0
+    n_active = int((after.rounds != before.rounds).sum())
+    n_live, n_pairs = int(live.sum()), int(pairs.sum())
+    changed = int((W0.view(-1, m * m)[live] != W1.view(-1, m * m)[live]).sum())
+    dying = before.alive & ~after.alive
+    survivor = after.sizes != before.sizes
+    rowmin, i0 = before.rowcache
+    grew = W1.gather(2, i0[..., None])[..., 0].float() > rowmin
+    again = after.alive & ~survivor & (dying | survivor).gather(1, i0) & grew
+    n_again = int(again.sum())
+    cache_changed = int(((after.rowcache[0] != rowmin) | (after.rowcache[1] != i0)).sum())
+    # alive flags and cnt, rounds of every lane; row cache (4 + 8) of the
+    # active lanes; sizes of the live lanes; lasth (4) and gidx (8) of a and b
+    select = L * (m + 16) + n_active * m * 12 + n_live * m * 4 + n_pairs * 24
+    # lasth, alive, merges, heights at a pair (4 + 1 + 8 + 4) and the
+    # counters; then sizes at a pair
+    books = n_pairs * 17 + n_active * 16
+    written = changed * es + cache_changed * 12 + books + n_pairs * 4
+    return dict(
+        bytes=select + (2 * n_pairs + n_again) * m * es + written,
+        live_w_bytes=select + n_live * m * m * es + written,
+        old_bytes=2 * L * m * m * es + L * P * m * es + L * m * (4 + 1) + L * m * (4 + 8),
+        pairs_bytes=select + 3 * n_pairs * m * es + int((pairs * pairs).sum()) * 4 + n_live * m * 4
+        + n_pairs * 20 + books,
+        live_lanes=n_live, pairs=n_pairs, rows_read_again=n_again, changed_entries=changed,
+    )
+
+
+def _ladder_copy(ladder, device=None):
+    """A ladder with copies of every tensor of `ladder` (row cache too), on
+    `device` (default: where they are)."""
+    import copy
+
+    def cp(x):
+        return x.clone() if device is None else x.to(device, copy=True)
+
+    out = copy.copy(ladder)
+    for name in LADDER_FIELDS:
+        setattr(out, name, cp(getattr(ladder, name)))
+    out.rowcache = None if ladder.rowcache is None else tuple(cp(x) for x in ladder.rowcache)
+    out.scratch = None
+    out.level_rounds = list(ladder.level_rounds)
+    return out
+
+
+def _restore(dst, src):
+    """Copy the state of ladder `src` into ladder `dst` in place."""
+    for name in LADDER_FIELDS:
+        getattr(dst, name).copy_(getattr(src, name))
+    for a, b in zip(dst.rowcache, src.rowcache):
+        a.copy_(b)
+
+
+def _same_ladder(name, a, b):
+    import torch
+
+    for field in LADDER_FIELDS:
+        if not torch.equal(getattr(a, field), getattr(b, field)):
+            raise AssertionError(f"{name}: {field} differs from the plain round")
+    if not all(torch.equal(x, y) for x, y in zip(a.rowcache, b.rowcache)):
+        raise AssertionError(f"{name}: the row cache differs from the plain round")
+
+
+def _capture_rounds(D, store, keep=None):
+    """The ladder over D with kernel rounds, each round held against the
+    plain round `rnn_round` on a copy of the ladder: the whole state and the
+    row cache identical. Returns the ladder (compacted to its tail), copies
+    of the state (ladder, nxt, P) before the first round at each level size
+    (and before round `keep` = (m, t), the t-th of level m, under that key),
+    the rounds launched per level and the rounds held."""
     from sharp_tpu_torch.ops import linkage_cuda
-    from sharp_tpu_torch.ops.linkage import rnn_ladder
+    from sharp_tpu_torch.ops.linkage import rnn_ladder, rnn_round
 
     real = linkage_cuda.rnn_round_kernel
     first, per_level = {}, {}
 
-    def spy(W, rows, colslot, dying):
-        m = W.shape[-1]
+    def spy(ladder, nxt, P):
+        m = ladder.D.shape[-1]
         per_level[m] = per_level.get(m, 0) + 1
+        ladder.row_cache()
+        plain = _ladder_copy(ladder)
         if m not in first:
-            first[m] = tuple(x.clone() for x in (W, rows, colslot, dying))
-        return real(W, rows, colslot, dying)
+            first[m] = (_ladder_copy(ladder), nxt, P)
+        if keep == (m, per_level[m]):
+            first[keep] = (_ladder_copy(ladder), nxt, P)
+        real(ladder, nxt, P)
+        rnn_round(plain, nxt, P)
+        _same_ladder(f"rnn_round {ladder.D.dtype} m={m} round {per_level[m]}", ladder, plain)
 
     linkage_cuda.rnn_round_kernel = spy
     try:
         ladder = rnn_ladder(D, store_dtype=store, round_impl="pallas")
     finally:
         linkage_cuda.rnn_round_kernel = real
-    return ladder, first, per_level
+    return ladder, first, per_level, sum(per_level.values())
 
 
-def _hold_round(name, inputs):
-    """The round kernel against `rnn_round_scatter` on one round's inputs:
-    identical matrix, row minima and argmins; times and the bound."""
+def _hold_round(name, state, reps=KERNEL_REPS):
+    """The round kernel against the plain round `rnn_round` from one saved
+    state (ladder, nxt, P): identical ladders after it; the kernel's time
+    (CUDA events around the round alone, the state restored and the L2
+    cache flushed before each), the plain round's, the bound counted from
+    what this round needs and by the earlier kernel's count (`round_bytes`),
+    and the kernels' own times."""
     import torch
 
-    from sharp_tpu_torch.ops.linkage import rnn_round_scatter
+    from sharp_tpu_torch.ops.linkage import rnn_round
     from sharp_tpu_torch.ops.linkage_cuda import rnn_round_kernel
 
-    W0, rows, colslot, dying = inputs
-    Wk, Wp = W0.clone(), W0.clone()
-    kmin, karg = rnn_round_kernel(Wk, rows, colslot, dying)
-    pmin, parg = rnn_round_scatter(Wp, rows, colslot, dying)
+    saved, nxt, P = state
+    work, plain = _ladder_copy(saved), _ladder_copy(saved)
+    rnn_round_kernel(work, nxt, P)
+    rnn_round(plain, nxt, P)
     torch.cuda.synchronize()
-    if not torch.equal(Wk, Wp):
-        raise AssertionError(f"{name}: the matrix differs from the plain scatter")
-    if not (torch.equal(kmin, pmin) and torch.equal(karg, parg)):
-        raise AssertionError(f"{name}: the row cache differs from the plain version")
-    del Wp
-    L, m, _ = W0.shape
-    # W read once and written once; rows, colslot, dying read once; the
-    # row cache written once
-    bound, by = _bound(2 * _nbytes(W0) + _nbytes(rows, colslot, dying, kmin, karg))
-    # the scatter is idempotent: repeated launches on Wk repeat the same work
+    _same_ladder(name, work, plain)
+    err = float((work.rowcache[0] - plain.rowcache[0]).abs().max())
+    nb = round_bytes(saved, work, P)
+    del plain
+    flush = torch.empty(2 * 50 * 2**20 // 4, dtype=torch.float32, device=work.D.device)
+
+    def timed(fn, n):
+        times = []
+        for _ in range(n):
+            _restore(work, saved)
+            flush.fill_(1.0)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(work, nxt, P)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    L, m, _ = saved.D.shape
+    bound, by = _bound(nb["bytes"])
+    old_bound = _bound(nb["old_bytes"])[0]
     row = dict(
-        shape=[L, m, rows.shape[1]], dtype=str(W0.dtype), pairs=int((colslot >= 0).sum()),
-        dying=int(dying.sum()), max_abs_err=float((kmin - pmin).abs().max()),
-        bound_ms=bound, bound_by=by,
-        ms=_median_ms(lambda: rnn_round_kernel(Wk, rows, colslot, dying), KERNEL_REPS),
-        plain_ms=_median_ms(lambda: rnn_round_scatter(Wk, rows, colslot, dying), PLAIN_REPS),
+        shape=[L, m, P], dtype=str(saved.D.dtype), max_abs_err=err, bound_ms=bound, bound_by=by,
+        old_count_bound_ms=old_bound, live_w_bound_ms=_bound(nb["live_w_bytes"])[0],
+        pairs_bound_ms=_bound(nb["pairs_bytes"])[0], **nb,
+        ms=timed(rnn_round_kernel, reps), plain_ms=timed(rnn_round, PLAIN_REPS),
     )
-    _device_ms_later(row, "device_ms", lambda: rnn_round_kernel(Wk, rows, colslot, dying),
-                     "rnn_round_kernel", name)
+
+    # the state waits for the profiler in host memory, so that the card's
+    # memory stays free for the later phases (their fold groups are sized
+    # from it)
+    dev, host, state = work.D.device, _ladder_copy(saved, "cpu"), []
+    del work, saved
+
+    def again():
+        if not state:
+            state.append(_ladder_copy(host, dev))
+            state.append(_ladder_copy(state[0]))
+        _restore(state[1], state[0])
+        rnn_round_kernel(state[1], nxt, P)
+
+    # the kernels alone: the scatter with the row cache (rnn_round) and the
+    # pairs' selection and fresh rows (rnn_pairs), per round
+    _device_ms_later(row, "device_ms", again, ("rnn_round_scatter",), name)
+    _device_ms_later(row, "pairs_device_ms", again, ("rnn_pairs_select", "rnn_pairs_rows"), name + " (pairs)")
     print(
-        f"[kernels] {name} L={L} P={rows.shape[1]} ({row['pairs']} pairs): matrix, row minima and "
-        f"argmins identical to the plain version; kernel {row['ms']:.3f} ms (plain "
-        f"{row['plain_ms']:.3f} ms, bound {bound:.3f} ms by {by}, {100 * bound / row['ms']:.1f}% of it)",
+        f"[kernels] {name} L={L} P={P} ({nb['live_lanes']} live lanes, {nb['pairs']} pairs, "
+        f"{nb['rows_read_again']} rows read again, {nb['changed_entries']} entries changed): matrix, row cache "
+        f"and ladder state identical to the plain round; kernel {row['ms']:.3f} ms (plain {row['plain_ms']:.3f} "
+        f"ms); bound {bound:.4f} ms by {by} counting what the round needs, {100 * bound / row['ms']:.1f}% of it "
+        f"(with W of the live lanes read whole {row['live_w_bound_ms']:.4f} ms; by the earlier kernel's count of all of W "
+        f"read and written {old_bound:.4f} ms, {100 * old_bound / row['ms']:.1f}%)",
         flush=True,
     )
     torch.cuda.empty_cache()
     return row
+
+
+def _pad_group(dev, Xbig, rounds):
+    """The bench's last fold group (PAD_GROUP, 80 lanes at n_pad 2048, 10 of
+    them 1,063 or 1,064 real): the whole ladder with kernel rounds against
+    plain rounds, merges and heights identical, in f32 and bf16; its time,
+    rounds launched and real, host reads; and one pad round (PAD_ROUND)
+    held and timed (into `rounds`)."""
+    import torch
+
+    from sharp_tpu_torch.ops import linkage_cuda
+    from sharp_tpu_torch.ops.linkage import LADDER_READ_EVERY, rnn_ladder, rnn_tail, ward_linkage_rnn
+
+    D, _ = _fold_group_distances(Xbig, dev, PAD_GROUP)
+    out = {}
+    for store_name, store in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        ladder, saved, per_level, held = _capture_rounds(D, store, keep=PAD_ROUND)
+        rounds[store_name][f"{PAD_ROUND[0]}_pad"] = _hold_round(
+            f"rnn_round {store_name} m={PAD_ROUND[0]} pad round {PAD_ROUND[1]}", saved[PAD_ROUND])
+        del saved
+        kernel = ladder.finish(*rnn_tail(*ladder.tail_inputs()))
+        plain = ward_linkage_rnn(D, store_dtype=store, round_impl="xla")
+        if not (torch.equal(kernel.merges, plain.merges) and torch.equal(kernel.heights, plain.heights)):
+            raise AssertionError(f"pad group {store_name}: the ladder's kernel rounds and plain rounds disagree")
+        del ladder, kernel, plain
+        torch.cuda.synchronize()
+        before = dict(linkage_cuda.LAUNCHES)
+        t0 = time.perf_counter()
+        ladder = rnn_ladder(D, store_dtype=store, round_impl="pallas")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = linkage_cuda.LAUNCHES["rnn_round"] - before["rnn_round"]
+        real = int(sum(int(r) for r in ladder.level_rounds))
+        k, levels = LADDER_READ_EVERY, len(ladder.level_rounds)
+        if not real <= launched <= real + (k - 1) * levels or (
+            linkage_cuda.LAUNCHES["rnn_pairs"] - before["rnn_pairs"] != launched
+        ):
+            raise AssertionError(f"pad group {store_name}: {launched} rounds launched for {real} rounds with a "
+                                 f"lane active over {levels} levels, reading every {k}")
+        out[store_name] = dict(
+            wall_ms=1e3 * wall, rounds_launched=launched, rounds_real=real, host_reads=ladder.host_reads,
+            ms_per_round=1e3 * wall / launched, held_rounds=held, rounds_per_level=per_level,
+            read_every=LADDER_READ_EVERY,
+        )
+        print(
+            f"[kernels] pad group {store_name} {tuple(D.shape[:2])}, lanes of {sorted(set(PAD_GROUP))} real: every round "
+            f"({held}) identical to the plain round; merges and heights identical to plain rounds; the ladder's "
+            f"rounds {1e3 * wall:.1f} ms, {launched} rounds launched ({real} with a lane active, read every "
+            f"{LADDER_READ_EVERY}), {1e3 * wall / launched:.3f} ms a round, {ladder.host_reads} host reads",
+            flush=True,
+        )
+        del ladder
+        torch.cuda.empty_cache()
+    return out
 
 
 class _RouteLog(dict):
@@ -1872,10 +2094,10 @@ def phase_bench(dev, record):
     calls, current, global_devices = [], [None], []
     real_round, real_program, real_smetac = linkage_cuda.rnn_round_kernel, fold.fold_program, streaming.smetac
 
-    def round_spy(W, *a):
+    def round_spy(ladder, *a):
         if current[0] is not None:
-            current[0].append(W.shape[-1])
-        return real_round(W, *a)
+            current[0].append(ladder.D.shape[-1])
+        return real_round(ladder, *a)
 
     def program_spy(*a, **k):
         current[0] = []
@@ -2010,18 +2232,24 @@ def main() -> int:
     ward, cut = rows[f"ward_wmetac_{GROUP}x256"]["f32"], rows["cutree_80x2048"]
     # every serial Ward shape, both storage types
     ward_err = max(r[st]["max_abs_err"] for r in rows.values() for st in ("f32", "bf16") if st in r)
-    r32 = rounds["f32"][max(rounds["f32"])]
+    # the round at the main path's largest level: its first round at 2048
+    r32 = rounds["f32"][2048]
+    round_err = max(r["max_abs_err"] for st in rounds.values() for r in st.values())
 
-    def entry(name, replaces, err, ms, plain_ms, bound_ms, bound_by, device_ms=None):
+    def entry(name, replaces, err, ms, plain_ms, bound_ms, bound_by, device_ms=None, source=None):
         # launches: sharp_unlimited over the 4 flagship blocks (problems: the
         # problems or lanes those launches took); launches_by_path adds the
         # large tier's flagship run, phase 7 (a)'s gethclust calls, the
         # flagship block over two shards, the bench's compute path and
         # phase 10 (a)'s flagship run at group 4.
         # ms: one call through the wrapper (CUDA events); device_ms: the
-        # kernel alone (torch.profiler), null where not measured
+        # kernel alone (torch.profiler), null where not measured. The round's
+        # wrapper launches both of its kernels: rnn_round's ms is the whole
+        # round (three launches) and its device_ms the scatter alone;
+        # rnn_pairs' ms is its two launches alone (torch.profiler), and its
+        # plain version is the plain round, as rnn_round's
         return {
-            "name": name, "route": "cuda", "source": f"sharp_tpu_torch/csrc/{name}.cu",
+            "name": name, "route": "cuda", "source": f"sharp_tpu_torch/csrc/{source or name}.cu",
             "replaces": replaces, "launches": unl_counts[name], "problems": unl_problems[name], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "device_ms": device_ms,
@@ -2032,9 +2260,11 @@ def main() -> int:
 
     kernels = {
         "kernels": [
-            entry("rnn_round", "sharp_tpu/ops/linkage_pallas.py:854",
-                  max(r["max_abs_err"] for st in rounds.values() for r in st.values()),
+            entry("rnn_round", "sharp_tpu/ops/linkage_pallas.py:854", round_err,
                   r32["ms"], r32["plain_ms"], r32["bound_ms"], r32["bound_by"], r32["device_ms"]),
+            entry("rnn_pairs", "sharp_tpu/ops/linkage_pallas.py:854", round_err,
+                  r32["pairs_device_ms"], r32["plain_ms"], r32["pairs_bound_ms"], "bytes",
+                  r32["pairs_device_ms"], source="rnn_round"),
             entry("rnn_tail", "sharp_tpu/ops/linkage_pallas.py:659",
                   max(tail["f32"]["max_abs_err"], tail["bf16"]["max_abs_err"]),
                   tail["f32"]["ms"], tail["f32"]["plain_ms"], tail["f32"]["bound_ms"], tail["f32"]["bound_by"],

@@ -20,7 +20,7 @@ import torch
 
 from sharp_tpu_torch.ops.linkage import counts_per_problem, resolve_linkage_backend
 from sharp_tpu_torch.ops.linkage_cuda import cutree_multi_kernel
-from sharp_tpu_torch.ops.rp import rp_project_ensemble
+from sharp_tpu_torch.ops.rp import log2p1, rp_project_ensemble
 from sharp_tpu_torch.ops.select import linkage, prep_distance, select_cut
 
 
@@ -60,7 +60,7 @@ def cluster_block_ensemble(
     G, n_pad, genes = Xf.shape
     maxN = int(maxN)
 
-    Xt = torch.log2(1.0 + Xf) if log_transform else Xf
+    Xt = log2p1(Xf) if log_transform else Xf
     proj = rp_project_ensemble(Xt.reshape(G * n_pad, genes), R_all, K=K)   # (K, G*n_pad, p)
     p = proj.shape[-1]
     proj = proj.reshape(K, G, n_pad, p).transpose(0, 1)                     # (G, K, n_pad, p)

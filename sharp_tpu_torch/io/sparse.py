@@ -20,6 +20,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sharp_tpu_torch.ops import rp
+
 WIRE_DTYPES = ("float32", "bfloat16")
 
 
@@ -184,7 +186,7 @@ def densify_folds(
         c = c & 0xFFFF
     v = vals.float()
     if log2p1:
-        v = torch.log2(1.0 + v)
+        v = rp.log2p1(v)
     size = G * block_pad * genes
     g = torch.arange(G, device=dev)[:, None]
     # dropped entries all go to one extra slot past the folds

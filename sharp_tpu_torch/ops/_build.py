@@ -58,7 +58,7 @@ _SIGNATURES = {
     },
     "rnn_round.cu": {
         "sharp_rnn_round_launch": (
-            _INT, [_VOID_P] * 6 + [_INT, _INT, _INT, _INT, _VOID_P]
+            _INT, [_VOID_P] * 16 + [_INT] * 6 + [_VOID_P]
         ),
     },
 }

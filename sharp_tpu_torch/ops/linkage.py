@@ -12,13 +12,13 @@ Counterpart of `sharp_tpu/ops/linkage.py`. The reference bottoms out in
   * `cutree_multi` replays the merge sequence once and snapshots the labels
     at every candidate k in [minN, minN+ncand).
   * `ward_linkage_rnn` is the reciprocal-nearest-neighbour ladder for
-    large problems: rounds merge every mutual-NN pair at once (each round's
-    scatter and the next round's row cache in `rnn_round_scatter`), a size
-    ladder compacts the survivors, and `rnn_tail` drains the last
-    compacted subproblem in strict serial order.
+    large problems: rounds merge every mutual-NN pair at once (`rnn_round`:
+    `RnnLadder.round`, its scatter `rnn_round_scatter`, and the next
+    round's row cache), a size ladder compacts the survivors, and
+    `rnn_tail` drains the last compacted subproblem in strict serial order.
 
-`ward_linkage`, `cutree_snapshots`, `rnn_round_scatter` and `rnn_tail` are
-the plain versions of the hand-written kernels in `ops/linkage_cuda.py`
+`ward_linkage`, `cutree_snapshots`, `rnn_round` and `rnn_tail` are the
+plain versions of the hand-written kernels in `ops/linkage_cuda.py`
 (`ward_linkage_serial`, `cutree_multi_kernel`, `rnn_round_kernel`,
 `rnn_tail_kernel`): the CPU runs them, and the card's run is held against
 them.
@@ -268,10 +268,10 @@ def _round_scatter_(W, rows, colslot, dying) -> None:
 def rnn_round_scatter(
     W: torch.Tensor, rows: torch.Tensor, colslot: torch.Tensor, dying: torch.Tensor
 ):
-    """One ladder round's scatter and the next round's row cache.
+    """One ladder round's scatter and the next round's row cache: what the
+    TPU kernel `_round_scatter_kernel` computes
+    (sharp_tpu/ops/linkage_pallas.py:683-758).
 
-    Plain version of `rnn_round_kernel`, the port of the TPU kernel
-    `_round_scatter_kernel` (sharp_tpu/ops/linkage_pallas.py:683-758).
     W (L, m, m) float32 or bfloat16 storage is updated in place (see
     `_round_scatter_`); rows (L, P, m) in W's dtype are the pairs' fresh
     rows, colslot (L, m) integer holds -1 or the pair slot whose survivor
@@ -285,13 +285,15 @@ def rnn_round_scatter(
 
 
 ROUND_IMPLS = ("auto", "xla", "pallas")
+# rounds the level loop of `rnn_ladder` runs between two host reads
+LADDER_READ_EVERY = 8
 
 
 def _round_fused(round_impl: str) -> bool:
     """Whether the ladder's rounds go through the round kernel: "auto" and
-    "pallas" do (`rnn_round_kernel`, which takes its plain version for a
-    CPU tensor); "xla" keeps the rounds in plain PyTorch, each round
-    computing its row cache from the matrix."""
+    "pallas" do (`rnn_round_kernel`, which takes its plain version
+    `rnn_round` for a CPU tensor); "xla" keeps the rounds in plain PyTorch,
+    each round computing its row cache from the matrix."""
     if round_impl not in ROUND_IMPLS:
         raise ValueError(f"unknown round_impl {round_impl!r} (one of {ROUND_IMPLS})")
     return round_impl != "xla"
@@ -325,14 +327,22 @@ class RnnLadder:
         self.gidx = torch.arange(n, device=dev).repeat(L, 1)   # global cluster of each slot
         self.lasth = torch.zeros((L, n), dtype=torch.float32, device=dev)
         # n - 1 merge records and, at n - 1, one slot that absorbs the
-        # writes of empty pair slots
+        # writes of empty pair slots: (gidx[0], gidx[0]) = (0, 0) and BIG
+        # after the first round with an empty slot (slot 0 never dies)
         self.merges = torch.zeros((L, n, 2), dtype=torch.int32, device=dev)
         self.heights = torch.zeros((L, n), dtype=torch.float32, device=dev)
         self.cnt = torch.zeros(L, dtype=torch.long, device=dev)
         self.rounds = torch.zeros(L, dtype=torch.long, device=dev)
-        # (rowmin float32, rowarg int64) of D, carried from a fused round
-        # to the next; None makes the next round compute it from D
+        # (rowmin float32, rowarg int64) of D, carried from a kernel round to
+        # the next; None makes `row_cache` compute it from D
         self.rowcache = None
+        # the round kernel's pair buffers (`rnn_round_kernel`), kept for the
+        # rounds of a level
+        self.scratch = None
+        # host reads of `rnn_ladder`'s level loop, and each finished level's
+        # rounds, the most any lane took (a (0-d) tensor on the device)
+        self.host_reads = 0
+        self.level_rounds = []
 
     def tail_inputs(self):
         """(D, alive, sizes, gidx, lasth) of the compacted subproblem, as
@@ -351,17 +361,36 @@ class RnnLadder:
         merges = merges[:, : n - 1].gather(1, order[:, :, None].expand(L, n - 1, 2))
         return LinkageResult(merges, heights)
 
-    def round(self, active: torch.Tensor, P: int, fused: bool = True) -> None:
-        """One round on the lanes flagged `active`: merge up to P mutual
-        nearest-neighbour pairs per lane (sharp_tpu/ops/linkage.py:612-767,
-        with the one-hot contractions written as direct indexing).
+    def active(self, nxt: int) -> torch.Tensor:
+        """(L,) bool, on the device: the lanes that take a round toward a
+        level of at most nxt clusters, those with merges left, more than nxt
+        clusters alive and fewer than n rounds at this level (the JAX
+        package's `cond_lvl`, sharp_tpu/ops/linkage.py:830-832). A lane
+        leaves and does not come back within a level."""
+        return (self.cnt < self.n - 1) & (self.alive.sum(dim=1) > nxt) & (self.rounds < self.n)
 
-        The row minima and first-index argmins come from the cache the
-        previous fused round carried forward, or from D at the first round
-        of a level. `fused` scatters through `rnn_round_kernel`, which also
-        returns the next round's cache; otherwise the plain scatter runs
-        and the next round reads D again. Frozen lanes have no pairs: the
-        scatter leaves their rows, and so their cache, as they are.
+    def row_cache(self):
+        """(rowmin float32, rowarg int64): each row's minimum over the
+        stored values and the first index that holds it, carried from the
+        previous kernel round or computed from D."""
+        if self.rowcache is None:
+            rowmin, rowarg = self.D.min(dim=2)
+            self.rowcache = (rowmin.float(), rowarg)
+        return self.rowcache
+
+    def round(self, active: torch.Tensor, P: int) -> None:
+        """One round on the lanes flagged `active`, in plain PyTorch: merge
+        up to P mutual nearest-neighbour pairs per lane
+        (sharp_tpu/ops/linkage.py:612-767, with the one-hot contractions
+        written as direct indexing).
+
+        The row minima and first-index argmins come from `row_cache`; the
+        scatter is `_round_scatter_`, after which the next round reads D
+        again. Frozen lanes have no pairs: the scatter leaves their rows as
+        they are. A round on which no lane is active changes nothing but
+        the discard slot n - 1 of merges and heights, which it sets to (0,
+        0) and BIG as every round with an empty pair slot does; `finish`
+        drops that slot.
         """
         W = self.D
         L, m, _ = W.shape
@@ -369,12 +398,7 @@ class RnnLadder:
         st = W.dtype
         ar = torch.arange(m, device=dev)
         arP = torch.arange(P, device=dev)
-        # row min and first-index argmin over the stored values
-        if self.rowcache is None:
-            rowmin_st, nn = W.min(dim=2)
-            rowmin = rowmin_st.float()
-        else:
-            rowmin, nn = self.rowcache
+        rowmin, nn = self.row_cache()
         mutual = (nn.gather(1, nn) == ar) & self.alive & (rowmin < 0.5 * BIG)
         lead = mutual & (ar < nn) & active[:, None]
         # the first P leads of each lane, in index order
@@ -427,14 +451,8 @@ class RnnLadder:
         )
 
         # survivors' rows and columns take their fresh rows; dying ones die
-        colslot = colslot.to(torch.int32).contiguous()
-        if fused:
-            from sharp_tpu_torch.ops.linkage_cuda import rnn_round_kernel
-
-            self.rowcache = rnn_round_kernel(W, rows_st, colslot, dying.contiguous())
-        else:
-            _round_scatter_(W, rows_st, colslot, dying)
-            self.rowcache = None
+        _round_scatter_(W, rows_st, colslot, dying)
+        self.rowcache = None
         self.alive = self.alive & ~dying
         self.sizes = self.sizes + torch.where(cola, nb.gather(1, cs), 0.0)
 
@@ -470,8 +488,28 @@ class RnnLadder:
         self.sizes = torch.where(svC, self.sizes.gather(1, surv), 1.0)
         self.gidx = torch.where(svC, self.gidx.gather(1, surv), 0)
         self.lasth = torch.where(svC, self.lasth.gather(1, surv), 0.0)
+        self.level_rounds.append(self.rounds.max())
         self.rounds.zero_()
         self.rowcache = None
+        self.scratch = None
+
+
+def rnn_round(ladder: RnnLadder, nxt: int, P: int) -> None:
+    """One round of the ladder toward a level of at most nxt clusters, in
+    place: `RnnLadder.round` on the lanes `RnnLadder.active(nxt)` flags, up
+    to P pairs a lane, then the next round's row cache. Plain version of
+    `rnn_round_kernel`."""
+    ladder.round(ladder.active(nxt), P)
+    ladder.row_cache()
+
+
+def _read_every(D: torch.Tensor, fused: bool) -> int:
+    """Rounds of `rnn_ladder`'s level loop between two host reads: the card's
+    round kernel, which returns at once when no lane is active, reads every
+    `LADDER_READ_EVERY` rounds; plain rounds (the CPU, round_impl "xla"),
+    which do the whole round's work even then and whose read costs little,
+    read every round."""
+    return LADDER_READ_EVERY if fused and D.is_cuda else 1
 
 
 def rnn_ladder(
@@ -484,20 +522,28 @@ def rnn_ladder(
     """The rounds of the reciprocal-NN ladder over D (L, n, n), down to the
     compacted subproblem of at most `compact_n` clusters per lane that the
     tail drains (sharp_tpu/ops/linkage.py:817-837). `round_impl` picks the
-    rounds' scatter (`_round_fused`).
+    rounds (`_round_fused`).
 
     Ward's recurrence is reducible, so every mutual-NN pair can merge in
     one round. At each level, rounds run only until a lane's survivors fit
     the next (half-size) level; then the survivors are compacted. The L
     lanes behave as separate calls: a lane that already fits the next level
     takes no more rounds while others do (a vmapped while loop in the JAX
-    package). One host sync per round decides whether any lane goes on.
+    package). Whether any lane goes on is computed on the device and read
+    by the host once before a level's first round and then once every k
+    rounds (`_read_every`; `RnnLadder.host_reads` counts the reads): a
+    round on which no lane is active changes nothing, so the merges are
+    those of a read before every round, and at most k - 1 rounds a level
+    run with every lane inactive.
     """
     L, n, _ = D.shape
     st = store_dtype if store_dtype is not None else D.dtype
     if st not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the ladder stores float32 or bfloat16, got {st}")
     fused = _round_fused(round_impl)
+    if fused:
+        from sharp_tpu_torch.ops import linkage_cuda
+    read_every = _read_every(D, fused)
     C = min(compact_n, n)
     s = RnnLadder(D, st)
     lvl = n
@@ -505,10 +551,14 @@ def rnn_ladder(
         nxt = max(lvl // 2, C)
         P = min(pair_cap, lvl // 2)
         while True:
-            active = (s.cnt < n - 1) & (s.alive.sum(dim=1) > nxt) & (s.rounds < n)
-            if not bool(active.any()):
+            s.host_reads += 1
+            if not bool(s.active(nxt).any()):
                 break
-            s.round(active, P, fused)
+            for _ in range(read_every):
+                if fused:
+                    linkage_cuda.rnn_round_kernel(s, nxt, P)
+                else:
+                    s.round(s.active(nxt), P)
         s.compact(nxt)
         lvl = nxt
     return s
@@ -534,9 +584,9 @@ def ward_linkage_rnn(
     `store_dtype` (float32 or bfloat16, default D's dtype) is the matrix
     storage; the Lance-Williams arithmetic stays float32. `round_impl`
     takes the JAX package's names: "xla" keeps the rounds in plain
-    PyTorch; "pallas" scatters each round through `rnn_round_kernel`
-    (its plain version on a CPU tensor), which also carries the row cache
-    to the next round; "auto" is "pallas" (the TPU kept its fused round
+    PyTorch; "pallas" runs each round through `rnn_round_kernel` (its
+    plain version on a CPU tensor), which also carries the row cache to
+    the next round; "auto" is "pallas" (the TPU kept its fused round
     opt-in for a cost of its own compiler, which does not apply here). The
     output is identical either way. `compact_cap` is accepted for
     signature parity: it sizes the JAX package's round-based tail, which

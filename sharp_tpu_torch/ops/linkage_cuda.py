@@ -7,13 +7,17 @@ port:
     ward_linkage_pallas  -> ward_linkage_serial   (csrc/ward_serial.cu)
     cutree_multi_pallas  -> cutree_multi_kernel   (csrc/cutree.cu)
     rnn_tail_pallas      -> rnn_tail_kernel       (csrc/rnn_tail.cu)
-    rnn_round_scatter    -> rnn_round_kernel      (csrc/rnn_round.cu)
+    rnn_round_scatter    -> rnn_round_kernel      (csrc/rnn_round.cu: the
+                            whole round, the pairs' selection and fresh rows
+                            in `rnn_pairs_*`, the scatter in
+                            `rnn_round_scatter`)
 
 A wrapper launches its kernel for a CUDA tensor and takes the kernel's
 plain version (`ops/linkage.py`) only for a CPU tensor; any other device,
 dtype, shape or layout raises. Launches go on the current CUDA stream and
 do not synchronise. Each wrapper adds one to its kernel's entry of
-`LAUNCHES`, and the problems or lanes it launched to its entry of
+`LAUNCHES` (the round's wrapper to "rnn_pairs" and "rnn_round", the two
+parts of its round), and the problems or lanes it launched to its entry of
 `PROBLEMS`, where it launches the kernel, and nowhere else, under a lock:
 the shards of `parallel/sharded.py` launch from several threads.
 """
@@ -30,7 +34,7 @@ from sharp_tpu_torch.ops.linkage import (
     LinkageResult,
     cut_forest,
     cutree_snapshots,
-    rnn_round_scatter,
+    rnn_round,
     rnn_tail,
     ward_linkage,
     counts_per_problem,
@@ -53,8 +57,8 @@ WARD_STATE_SMEM_MAX_N = 8192
 _STORE = {torch.float32: 0, torch.bfloat16: 1}
 # launches of each kernel, keyed by the kernel's name; owned by this module,
 # so a wrapper replaced by a test double does not take the count with it
-LAUNCHES = dict.fromkeys(("ward_serial", "cutree", "rnn_tail", "rnn_round"), 0)
-# the problems (serial Ward, cut replay) or lanes (tail, round) those
+LAUNCHES = dict.fromkeys(("ward_serial", "cutree", "rnn_tail", "rnn_round", "rnn_pairs"), 0)
+# the problems (serial Ward, cut replay) or lanes (tail, round, pairs) those
 # launches took, summed over the launches
 PROBLEMS = dict.fromkeys(LAUNCHES, 0)
 # the same launches and problems by the mesh position (data, ens) of the
@@ -235,24 +239,54 @@ def rnn_tail_kernel(
     return mi, mj, hh
 
 
-# gridDim.y of the round kernel holds the lanes
+# gridDim.y of the round's kernels holds the lanes
 RNN_ROUND_MAX_L = 65535
+# the round's state on the card: name, dtype and shape in (L, m, n) terms
+_ROUND_STATE = (
+    ("alive", torch.bool, ("L", "m")), ("sizes", torch.float32, ("L", "m")),
+    ("gidx", torch.int64, ("L", "m")), ("lasth", torch.float32, ("L", "m")),
+    ("merges", torch.int32, ("L", "n", 2)), ("heights", torch.float32, ("L", "n")),
+    ("cnt", torch.int64, ("L",)), ("rounds", torch.int64, ("L",)),
+)
 
 
-def rnn_round_kernel(
-    W: torch.Tensor, rows: torch.Tensor, colslot: torch.Tensor, dying: torch.Tensor
-):
-    """One ladder round's scatter on W (L, m, m), float32 or bfloat16
-    storage, updated in place, and the next round's row cache.
+def _round_scratch(ladder, L: int, m: int, P: int):
+    """The round's pair buffers, kept on the ladder for the rounds of a
+    level: ints (npairs (L), a, b (L, P)), floats (h, na, nb (L, P)), the
+    column codes (L, m), the fresh rows (L, P, m) in the storage type and
+    the pair-pair entries (L, P, P)."""
+    W = ladder.D
+    key = (L, m, P, W.dtype, W.device)
+    if ladder.scratch is None or ladder.scratch[0] != key:
+        dev = W.device
+        ladder.scratch = (key, (
+            torch.empty(L + 2 * L * P, dtype=torch.int32, device=dev),
+            torch.empty(3 * L * P, dtype=torch.float32, device=dev),
+            torch.empty((L, m), dtype=torch.int32, device=dev),
+            torch.empty((L, P, m), dtype=W.dtype, device=dev),
+            torch.empty((L, P, P), dtype=torch.float32, device=dev),
+        ))
+    return ladder.scratch[1]
 
-    rows (L, P, m) in W's dtype, colslot (L, m) int32 (-1, or the pair slot
-    whose survivor is column c), dying (L, m) bool or uint8. Returns rowmin
-    (L, m) float32 and rowarg (L, m) int64, the first index of each row's
-    minimum over the stored values. Same contract as
-    `ops.linkage.rnn_round_scatter`, and identical output.
+
+def rnn_round_kernel(ladder, nxt: int, P: int) -> None:
+    """One round of the reciprocal-NN ladder in place on `ladder` (an
+    `ops.linkage.RnnLadder`): the lanes with merges left, more than nxt
+    clusters alive and fewer than n rounds at this level merge up to P
+    mutual nearest-neighbour pairs each; W (L, m, m), float32 or bfloat16
+    storage, its row cache and the cluster and merge state are updated.
+    Same contract as `ops.linkage.rnn_round`, and an identical ladder after
+    it (`rnn_round` is taken for a CPU tensor).
+
+    Three launches on the current stream, none of which the host waits for
+    (csrc/rnn_round.cu): the pairs' selection with the bookkeeping, their
+    fresh rows and pair-pair entries, and the scatter with the next row
+    cache. A lane with no pair reads and writes nothing of W. Counts one
+    launch of "rnn_pairs" (the first two) and one of "rnn_round".
     """
+    W = ladder.D
     if _device_kind(W) == "cpu":
-        return rnn_round_scatter(W, rows, colslot, dying)
+        return rnn_round(ladder, nxt, P)
     if W.dtype not in _STORE:
         raise TypeError(f"rnn_round_kernel stores float32 or bfloat16, got {W.dtype}")
     if W.dim() != 3 or W.shape[1] != W.shape[2] or not W.is_contiguous():
@@ -260,31 +294,34 @@ def rnn_round_kernel(
     L, m, _ = W.shape
     if not 1 <= L <= RNN_ROUND_MAX_L:
         raise ValueError(f"rnn_round_kernel takes 1 <= L <= {RNN_ROUND_MAX_L}, got {L}")
-    if (rows.dtype != W.dtype or rows.dim() != 3 or rows.shape[0] != L or rows.shape[2] != m
-            or rows.shape[1] < 1 or not rows.is_contiguous() or rows.device != W.device):
-        raise ValueError(
-            f"rnn_round_kernel takes rows (L, P, m) = ({L}, P, {m}) {W.dtype}, contiguous, on "
-            f"{W.device}; got {tuple(rows.shape)} {rows.dtype} on {rows.device}"
-        )
-    for name, x, dts in (("colslot", colslot, (torch.int32,)),
-                         ("dying", dying, (torch.bool, torch.uint8))):
-        if x.dtype not in dts or tuple(x.shape) != (L, m) or not x.is_contiguous() or x.device != W.device:
+    if not 1 <= P <= m // 2:
+        raise ValueError(f"rnn_round_kernel takes 1 <= P <= m // 2 = {m // 2}, got {P}")
+    n = ladder.n
+    dims = {"L": L, "m": m, "n": n}
+    rowmin, rowarg = ladder.row_cache()
+    state = [(name, getattr(ladder, name), dt, shape) for name, dt, shape in _ROUND_STATE]
+    state += [("rowmin", rowmin, torch.float32, ("L", "m")), ("rowarg", rowarg, torch.int64, ("L", "m"))]
+    for name, x, dt, shape in state:
+        shape = tuple(dims.get(d, d) for d in shape)
+        if x.dtype != dt or tuple(x.shape) != shape or not x.is_contiguous() or x.device != W.device:
             raise ValueError(
-                f"rnn_round_kernel takes {name} ({L}, {m}) {dts}, contiguous, on {W.device}; got "
+                f"rnn_round_kernel takes {name} {shape} {dt}, contiguous, on {W.device}; got "
                 f"{tuple(x.shape)} {x.dtype} on {x.device}"
             )
     from sharp_tpu_torch.ops._build import load_kernels
 
     lib = load_kernels()["rnn_round.cu"]
-    rowmin = torch.empty((L, m), dtype=torch.float32, device=W.device)
-    rowarg = torch.empty((L, m), dtype=torch.int64, device=W.device)
+    ints, floats, code, F, E = _round_scratch(ladder, L, m, P)
     rc = lib.sharp_rnn_round_launch(
-        W.data_ptr(), rows.data_ptr(), colslot.data_ptr(), dying.data_ptr(),
-        rowmin.data_ptr(), rowarg.data_ptr(), L, m, rows.shape[1], _STORE[W.dtype], _stream(),
+        W.data_ptr(), ladder.alive.data_ptr(), ladder.sizes.data_ptr(), ladder.gidx.data_ptr(),
+        ladder.lasth.data_ptr(), rowmin.data_ptr(), rowarg.data_ptr(), ladder.merges.data_ptr(),
+        ladder.heights.data_ptr(), ladder.cnt.data_ptr(), ladder.rounds.data_ptr(), ints.data_ptr(),
+        floats.data_ptr(), code.data_ptr(), F.data_ptr(), E.data_ptr(), L, m, n, nxt, P,
+        _STORE[W.dtype], _stream(),
     )
     _check_rc(rc, "rnn_round")
+    _count("rnn_pairs", L)
     _count("rnn_round", L)
-    return rowmin, rowarg
 
 
 def cutree_snapshots_kernel(

@@ -11,9 +11,35 @@ to the input right before the product. The product itself is a plain
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from sharp_tpu_torch.utils.prng import member_generator
+
+# float dtypes whose torch.log2 has run once in this process on one CPU thread
+_LOG2_READY = set()
+_LOG2_LOCK = threading.Lock()
+
+
+def log2p1(x: torch.Tensor) -> torch.Tensor:
+    """log2(1 + x), as `torch.log2(1.0 + x)`: the log transform of the dense
+    feed, the sparse feed and the projection.
+
+    On the CPU, torch takes the log2 of a float tensor with MKL's vector
+    math, in chunks over its OpenMP threads. When a process's first such
+    call ran on several threads at once, one thread's whole chunk could
+    come back up to ~890 float32 ulps off (the intermittent mismatch of the
+    sparse feed against the JAX package). So the first call of a process
+    for each dtype is made on one element, on the calling thread, before
+    any other; the result is the same function.
+    """
+    if x.device.type == "cpu" and x.dtype not in _LOG2_READY:
+        with _LOG2_LOCK:
+            if x.dtype not in _LOG2_READY:
+                torch.log2(torch.ones(1, dtype=x.dtype))
+                _LOG2_READY.add(x.dtype)
+    return torch.log2(1.0 + x)
 
 
 def ternary_rp_matrix(
@@ -52,7 +78,7 @@ def ensemble_rp_matrix(
 
 
 def _project(X: torch.Tensor, R: torch.Tensor, p: int, log_transform: bool):
-    Xc = torch.log2(1.0 + X) if log_transform else X
+    Xc = log2p1(X) if log_transform else X
     # inputs rounded to the compute dtype, product and output in float32
     # (the JAX package's preferred_element_type=float32)
     out = torch.matmul(Xc.to(R.dtype).float(), R.float())

@@ -335,50 +335,147 @@ def test_ladder_with_kernel_tail_matches_plain_tail(dev, store):
         assert torch.equal(got.heights.cpu(), ref.heights.cpu())
 
 
-def _round_inputs(L, m, P, dev, store, seed=0):
-    """A round's inputs with exact ties: lane 0 merges P pairs, lane 1 is
-    frozen (no pairs), lane 2 merges P // 3; rows and columns of clusters
-    merged away earlier are BIG (all-BIG rows)."""
+def _round_ladder(m, dev, store, seed=0):
+    """A ladder of four lanes at n_pad m with exact ties: lane 0 coarse
+    symmetric distances (many pairs, more than P), lane 1 frozen (all but 8
+    clusters merged away, so at most nxt alive), lane 2 all-tied pads (one
+    pair a round), lane 3 lane 0 made asymmetric by one step below the
+    diagonal (rows a and b must be read as rows)."""
     from sharp_tpu_torch.ops.distance import BIG
+    from sharp_tpu_torch.ops.linkage import RnnLadder
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    W = torch.randint(1, 40, (L, m, m), generator=g) * 0.03125
-    rows = torch.randint(1, 40, (L, P, m), generator=g) * 0.03125
-    rows[torch.rand((L, P, m), generator=g) < 0.05] = BIG
-    colslot = torch.full((L, m), -1, dtype=torch.int32)
-    dying = torch.zeros((L, m), dtype=torch.bool)
-    for lane, n_pairs in enumerate((P, 0, P // 3)[:L]):
-        W[lane, torch.arange(m), torch.arange(m)] = BIG
-        order = torch.randperm(m, generator=g)
-        dead, pick = order[:5], order[5 : 5 + 2 * n_pairs]
-        W[lane, dead, :] = BIG
-        W[lane, :, dead] = BIG
-        rows[lane, :, dead] = BIG                 # as the round masks dead columns
-        colslot[lane, torch.sort(pick[:n_pairs]).values] = torch.arange(n_pairs, dtype=torch.int32)
-        dying[lane, pick[n_pairs:]] = True
-    return W.to(dev, store), rows.to(dev, store), colslot.to(dev), dying.to(dev), dead
+    up = torch.triu(torch.randint(1, 40, (m, m), generator=g) * 0.03125, 1)
+    sym = up + up.T
+    D = torch.stack([sym, sym, torch.full((m, m), 0.5), sym + 0.03125 * torch.tril(torch.ones(m, m), -1)])
+    ladder = RnnLadder(D.to(dev), store)
+    ladder.alive[1, 8:] = False
+    ladder.D[1, 8:, :] = BIG
+    ladder.D[1, :, 8:] = BIG
+    return ladder
 
 
-@pytest.mark.parametrize("m", [2048, 1536, 1030])
+def _ladder_copy(ladder):
+    import copy
+
+    out = copy.copy(ladder)
+    for name in ("D", "alive", "sizes", "gidx", "lasth", "merges", "heights", "cnt", "rounds"):
+        setattr(out, name, getattr(ladder, name).clone())
+    out.rowcache = None if ladder.rowcache is None else tuple(x.clone() for x in ladder.rowcache)
+    out.scratch = None
+    out.level_rounds = list(ladder.level_rounds)
+    return out
+
+
+@pytest.mark.parametrize("m", [256, 512, 270])
 @pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
 def test_rnn_round_kernel_matches_plain(dev, store, m):
-    """Identical matrix, row minima and first-index argmins; 1030 takes the
-    scalar path (not a multiple of the vector width)."""
-    from sharp_tpu_torch.ops.linkage import rnn_round_scatter
+    """Six rounds of the round kernel against the plain round on a copy of
+    the ladder: every field, the row cache and the merge records identical
+    after each; the frozen lane untouched; 270 takes the scalar path (not a
+    multiple of the vector width)."""
+    from sharp_tpu_torch.ops.linkage import rnn_round
     from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES, rnn_round_kernel
 
-    W, rows, colslot, dying, dead = _round_inputs(3, m, 128, dev, store)
-    Wk, Wp = W.clone(), W.clone()
-    before = LAUNCHES["rnn_round"]
-    kmin, karg = rnn_round_kernel(Wk, rows, colslot, dying)
-    torch.cuda.synchronize()
-    assert LAUNCHES["rnn_round"] == before + 1
-    pmin, parg = rnn_round_scatter(Wp, rows, colslot, dying)
-    assert torch.equal(Wk, Wp)
-    assert torch.equal(kmin, pmin) and torch.equal(karg, parg)
-    assert torch.equal(Wk[1], W[1])            # the frozen lane is untouched
-    assert (karg[2, dead] == 0).all()          # all-BIG rows: index 0
-    assert (karg[0][dying[0]] == 0).all()
+    ladder = _round_ladder(m, dev, store)
+    frozen = ladder.D[1].clone()
+    nxt, P = m // 2, 8
+    cnt = []
+    for t in range(6):
+        ladder.row_cache()
+        plain = _ladder_copy(ladder)
+        before = dict(LAUNCHES)
+        rnn_round_kernel(ladder, nxt, P)
+        torch.cuda.synchronize()
+        assert LAUNCHES["rnn_round"] == before["rnn_round"] + 1
+        assert LAUNCHES["rnn_pairs"] == before["rnn_pairs"] + 1
+        rnn_round(plain, nxt, P)
+        for name in ("D", "alive", "sizes", "gidx", "lasth", "merges", "heights", "cnt", "rounds"):
+            assert torch.equal(getattr(ladder, name), getattr(plain, name)), (t, name)
+        assert all(torch.equal(a, b) for a, b in zip(ladder.rowcache, plain.rowcache)), t
+        cnt.append(ladder.cnt.tolist())
+    assert torch.equal(ladder.D[1], frozen) and int(ladder.rounds[1]) == 0
+    assert cnt[0][0] == P                             # more leads than P
+    assert [c[2] for c in cnt] == [1, 2, 3, 4, 5, 6]  # one pair a round
+    # a round with no lane active changes nothing but the discard slot
+    state = _ladder_copy(ladder)
+    rnn_round_kernel(ladder, m, P)
+    for name in ("D", "alive", "sizes", "lasth", "cnt", "rounds"):
+        assert torch.equal(getattr(ladder, name), getattr(state, name)), name
+    for name in ("merges", "heights"):
+        assert torch.equal(getattr(ladder, name)[:, : m - 1], getattr(state, name)[:, : m - 1]), name
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+def test_rnn_round_kernel_more_pairs_than_threads(dev, store):
+    """More pairs a lane than the selection's 1024 threads: at m 2304 every
+    point 2i has 2i + 1 as its mutual nearest neighbour (1,152 pairs, P =
+    m // 2), so every slot past the block's threads must record its merge,
+    kill its dying row and code its columns. Two rounds against the plain
+    round on a copy of the ladder: every field and the row cache
+    identical."""
+    from sharp_tpu_torch.ops.linkage import RnnLadder, rnn_round
+    from sharp_tpu_torch.ops.linkage_cuda import rnn_round_kernel
+
+    m = 2304
+    g = torch.Generator(device="cpu").manual_seed(7)
+    lanes = []
+    for _ in range(2):
+        up = torch.triu(torch.randint(20, 60, (m, m), generator=g) * 0.03125, 1)
+        D = up + up.T
+        i = torch.arange(0, m, 2)
+        D[i, i + 1] = D[i + 1, i] = 1e-4 * (1 + torch.randperm(m // 2, generator=g).float())
+        lanes.append(D)
+    ladder = RnnLadder(torch.stack(lanes).to(dev), store)
+    nxt, P = 256, m // 2
+    for t in range(2):
+        ladder.row_cache()
+        plain = _ladder_copy(ladder)
+        rnn_round_kernel(ladder, nxt, P)
+        rnn_round(plain, nxt, P)
+        torch.cuda.synchronize()
+        for name in ("D", "alive", "sizes", "gidx", "lasth", "merges", "heights", "cnt", "rounds"):
+            assert torch.equal(getattr(ladder, name), getattr(plain, name)), (t, name)
+        assert all(torch.equal(a, b) for a, b in zip(ladder.rowcache, plain.rowcache)), t
+        if t == 0:
+            assert ladder.cnt.tolist() == [m // 2, m // 2]
+            assert int(ladder.alive.sum()) == m
+
+
+@pytest.mark.parametrize("store", [torch.float32, torch.bfloat16])
+def test_pad_heavy_ladder_reads_every_k_rounds(dev, store, monkeypatch):
+    """Lanes of 1000, 500 and 60 real points at n_pad 1024 (the last one's
+    pads merge one pair a round): the ladder with kernel rounds reading the
+    host every 8 rounds, and every round, against plain rounds on the card:
+    merges and heights identical; one launch of each of the round's kernels
+    a round; at most 7 rounds a level with no lane active; plain rounds
+    read every round."""
+    from sharp_tpu_torch.ops import linkage
+    from sharp_tpu_torch.ops.linkage import rnn_ladder, rnn_tail
+    from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES
+
+    D = torch.cat([_distances(1, 1024, nr, 24, seed=nr, dev=dev) for nr in (1000, 500, 60)])
+    links = {}
+    assert linkage._read_every(D, True) == 8 and linkage._read_every(D, False) == 1
+    real_read_every = linkage._read_every
+    for name, k, impl in (("k8", None, "auto"), ("k1", 1, "auto"), ("xla", None, "xla")):
+        monkeypatch.setattr(linkage, "_read_every", real_read_every if k is None else lambda D, fused, k=k: k)
+        before = dict(LAUNCHES)
+        s = rnn_ladder(D, store_dtype=store, round_impl=impl)
+        torch.cuda.synchronize()
+        launched = LAUNCHES["rnn_round"] - before["rnn_round"]
+        assert LAUNCHES["rnn_pairs"] - before["rnn_pairs"] == launched
+        real, levels = sum(int(r) for r in s.level_rounds), len(s.level_rounds)
+        if name == "k1":
+            assert launched == real and s.host_reads == real + levels
+        elif name == "k8":
+            assert real <= launched <= real + 7 * levels and s.host_reads < real
+        else:
+            assert launched == 0 and s.host_reads == real + levels
+        links[name] = s.finish(*rnn_tail(*s.tail_inputs()))
+    for name in ("k1", "xla"):
+        assert torch.equal(links["k8"].merges, links[name].merges)
+        assert torch.equal(links["k8"].heights, links[name].heights)
 
 
 def test_unlimited_on_card_matches_cpu(dev, tmp_path):
@@ -453,15 +550,21 @@ def test_wrappers_refuse_bad_input(dev):
 
     from sharp_tpu_torch.ops.linkage_cuda import rnn_round_kernel
 
-    W, rows, colslot, dying, _ = _round_inputs(2, 64, 8, dev, torch.float32)
+    ladder = _round_ladder(64, dev, torch.float32)
+    ladder.row_cache()
+    bad = _ladder_copy(ladder)
+    bad.D = ladder.D.double()
     with pytest.raises(TypeError):
-        rnn_round_kernel(W.double(), rows.double(), colslot, dying)
+        rnn_round_kernel(bad, 32, 8)
+    bad.D = ladder.D.transpose(1, 2)                # not contiguous
     with pytest.raises(ValueError):
-        rnn_round_kernel(W.transpose(1, 2), rows, colslot, dying)   # not contiguous
+        rnn_round_kernel(bad, 32, 8)
+    bad = _ladder_copy(ladder)
+    bad.cnt = ladder.cnt.int()
     with pytest.raises(ValueError):
-        rnn_round_kernel(W, rows, colslot.long(), dying)
+        rnn_round_kernel(bad, 32, 8)
     with pytest.raises(ValueError):
-        rnn_round_kernel(W, rows.to(torch.bfloat16), colslot, dying)
+        rnn_round_kernel(ladder, 32, 33)              # P > m // 2
 
 
 def test_sharp_on_card_matches_cpu(dev):

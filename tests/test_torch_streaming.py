@@ -282,6 +282,65 @@ def test_fold_triplets_and_densify_match_jax(wire):
             assert not dense[gi, z:].any()
 
 
+# a fresh process: the wire case's log2(1 + x) through the sparse feed, with
+# every call of torch.log2 recorded
+_FIRST_LOG2 = """
+import json
+import sys
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+sys.path.insert(0, sys.argv[1])
+calls = []
+real = torch.log2
+
+
+def spy(x, *a, **k):
+    calls.append(x.numel())
+    return real(x, *a, **k)
+
+
+torch.log2 = spy
+from sharp_tpu_torch.io import sparse
+
+rng = np.random.default_rng(3)
+X = rng.lognormal(1, 1, size=(300, 200)).astype(np.float32)
+X[rng.uniform(size=X.shape) < 0.8] = 0.0
+sb = sparse.SparseBlock.from_scipy(sp.csr_matrix(X))
+c, col, v = sparse.fold_triplets(sb, [0, 120], [120, 120], 128, sparse.nnz_pad(int(sb.indptr[240]), step=1024))
+got = sparse.densify_folds(c, col, v, block_pad=128, genes=200, log2p1=True).numpy()
+raw = sparse.densify_folds(c, col, v, block_pad=128, genes=200).numpy()
+s = (np.float32(1.0) + raw).astype(np.float64)
+exact = np.log2(s)
+ulp = np.spacing(np.abs(exact).astype(np.float32)).astype(np.float64)
+err = np.abs(got - exact) / np.maximum(ulp, 1e-45)
+print(json.dumps({"calls": calls, "far": int((err > 1).sum()), "worst": float(err.max())}))
+"""
+
+
+def test_first_log2_of_a_process_runs_on_one_thread():
+    """The sparse feed's log2(1 + x) in a fresh process: the process's first
+    torch.log2 is on one element, on the calling thread, before the wire's
+    (MKL's log2 over torch's threads could return one thread's chunk up to
+    ~890 ulps off on a process's first parallel call); every value is
+    within 1 ulp of float64's log2 of the same float32 sum 1 + x. The
+    helper is the same function as torch.log2(1.0 + x)."""
+    import json
+    import subprocess
+    import sys
+
+    from sharp_tpu_torch.ops import rp
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = json.loads(subprocess.run([sys.executable, "-c", _FIRST_LOG2, root], capture_output=True,
+                                    text=True, check=True, timeout=120).stdout)
+    assert out["calls"][0] == 1 and len(out["calls"]) == 2 and out["calls"][1] > 2048, out
+    assert out["far"] == 0, out
+    x = torch.from_numpy(np.random.default_rng(5).lognormal(1, 1, 5000).astype(np.float32))
+    assert torch.equal(rp.log2p1(x), torch.log2(1.0 + x))
+
+
 def test_wire_edges():
     """int32 columns past 65536 genes; refilled staging buffers (counts
     zeroed, stale entries past nnz dropped); the budget check."""
