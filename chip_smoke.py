@@ -156,21 +156,37 @@ Phases, in order; any failure raises and the script exits non-zero:
               min/median/max per fold group and per block, the fuse shapes
               and the launches.
  10. surface  the JAX package's knobs and entry points beside the main
-              path. (a), (b) right after phase 5 (b); (c) after phase 8 (c).
+              path. (a), (b), (d) right after phase 5 (b); (c) after phase 8 (c).
               (a) The flagship block through sharp() under
               SHARP_TPU_FOLD_TIMING=1 and a SHARP_TPU_HBM_BUDGET that makes
               auto_group pick a group of 4 (7 fold groups): labels identical
               to phase 5 (b)'s at group 16, every kernel launched (3 ladder
-              levels and a tail a group, serial Ward on every wMetaC
-              problem, a cut replay per linkage); prints the group and the
+              levels and a tail a group, serial Ward on every wMetaC problem,
+              a cut replay per linkage); prints the group and the
               [fold-timing] parts (slice, transfer, device, readback) and
               their sum beside fold_ensemble. (b) fuse_folds(frs, cfg, N) on
               the card with the JAX package's positional arguments, on (a)'s
-              fold summaries: the labels and cluster count of
-              fuse_folds(frs, cfg). (c) The SBLK codec (g++, io/native) on
-              phase 6 (b)'s first block, 50,000 x 27,998: built and loaded;
-              densify on 1 thread and on all threads identical to the numpy
-              plain version; the three times.
+              fold summaries: the labels and cluster count of fuse_folds(frs,
+              cfg). (c) The SBLK codec (g++, io/native) on phase 6 (b)'s first
+              block, 50,000 x 27,998: built and loaded; densify on 1 thread
+              and on all threads identical to the numpy plain version; the
+              three times. (d) The JAX package's jit-compiled entry points,
+              each call's launches counted apart from the comparisons: (i)
+              ward_linkage_fast and ward_linkage_deferred on (a)'s block
+              distance (15, 512), (b)'s (15, 1024) and phase 3's tied (1,
+              1024): one serial Ward launch a call, merges and heights
+              identical to ward_linkage_serial and the plain loop, ms a call,
+              the kernel alone and the plain loop's time; (ii)
+              ward_linkage_deferred for each other monotone method on lane 0
+              of (a): no launch, identical to the plain loop on the CPU; (iii)
+              ward_linkage_rnn with tail "xla" and "auto" on the flagship
+              block's first fold group (80, 2048), f32 and bf16: identical,
+              the tail kernel launched 0 and 1 times; (iv) opt_hclust on that
+              group with precomputed_link: labels, k and maxsil of the call
+              without it, no linkage launch, one cut replay; (v) fold_program
+              on its 16 folds (16, 2048): indN_cluster=6 without has_indN
+              gives indN_cluster=None's result, with has_indN=True every
+              member's k is 6.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it holds the card's name and power limit as nvidia-smi prints them,
@@ -178,8 +194,9 @@ and the one before that the kernels' JSON record: per kernel its launches
 in the run of phase 6 (b) and the problems they took (and, under
 launches_by_path, its launches in the flagship run
 of phase 5 (b), in phase 7 (a)'s gethclust calls, in phase 8 (b), the
-flagship block over two shards, in phase 9's whole run and in phase 10
-(a)), its largest difference from the plain version, its time
+flagship block over two shards, in phase 9's whole run, in phase 10 (a)
+and in phase 10 (d)'s entry-point calls), its largest difference from the
+plain version, its time
 per call (and device_ms, the kernel alone), the plain version's, its bound
 and what bounds it. The ladder round's wrapper launches two kernels, each
 listed: rnn_pairs (the pairs' selection and fresh rows) and rnn_round (the
@@ -477,16 +494,16 @@ def _hold_cutree(name, merges, nr, ncand, minN=2, row=None):
     return row
 
 
-def _fold_group_distances(X, dev, sizes=None, cfg=None):
+def _fold_group_features(X, dev, sizes=None, cfg=None):
     """A fold group of the large path on X: G=16 folds (of 2,000 cells, or
     `sizes`) at n_pad 2048, log2, projected K ways with one ternary RP
-    matrix -> (G*K, 2048, 2048) Pearson distances and the config (X's own,
-    or `cfg`'s K and projection width)."""
+    matrix -> the (G*K, 2048, p) projections (pads zero), their mask and
+    real counts (G*K lanes) and the config (X's own, or `cfg`'s K and
+    projection width)."""
     import torch
 
     from sharp_tpu_torch.config import pad_dim, resolve_config
     from sharp_tpu_torch.ops.rp import rp_project_ensemble, ternary_rp_matrix
-    from sharp_tpu_torch.ops.select import prep_distance
     from sharp_tpu_torch.utils.prng import fixed_generator
 
     n, genes = X.shape
@@ -502,8 +519,42 @@ def _fold_group_distances(X, dev, sizes=None, cfg=None):
     proj = proj.reshape(K, GROUP, B, p).transpose(0, 1).reshape(GROUP * K, B, p)
     n_real = torch.tensor(sizes, device=dev).repeat_interleave(K)
     mask = torch.arange(B, device=dev)[None, :] < n_real[:, None]
-    D, _, _ = prep_distance(proj * mask[..., None], mask, symmetric=False)
+    return proj * mask[..., None], mask, n_real, cfg
+
+
+def _fold_group_distances(X, dev, sizes=None, cfg=None):
+    """`_fold_group_features`' group as (G*K, 2048, 2048) Pearson distances,
+    and the config."""
+    from sharp_tpu_torch.ops.select import prep_distance
+
+    proj, mask, _, cfg = _fold_group_features(X, dev, sizes, cfg)
+    D, _, _ = prep_distance(proj, mask, symmetric=False)
     return D.contiguous(), cfg
+
+
+def _small_tier_distance(dev, n_cells):
+    """The small tier's block linkage input at (a) (479 cells) or (b)
+    (1,000): 20,000 genes, 7 planted types (data seed 0), log2, projected
+    K ways with one ternary RP matrix (seed 0) -> (K, n_pad, n_pad) Pearson
+    distances and the count of real points."""
+    import torch
+
+    from sharp_tpu_torch.config import pad_dim, resolve_config
+    from sharp_tpu_torch.ops.rp import rp_project_ensemble, ternary_rp_matrix
+    from sharp_tpu_torch.ops.select import prep_distance
+    from sharp_tpu_torch.utils.prng import fixed_generator
+    from synth import make_tpm_like
+
+    cfg = resolve_config(n_cells, 20000, **SEED_KW)
+    X, _ = make_tpm_like(n_cells=n_cells, n_genes=20000, n_types=7, seed=0)
+    n_pad = pad_dim(n_cells)
+    Xp = torch.zeros((n_pad, 20000), device=dev)
+    Xp[:n_cells] = torch.from_numpy(np.log2(1.0 + X)).to(dev)
+    mask = torch.arange(n_pad, device=dev) < n_cells
+    R = ternary_rp_matrix(fixed_generator(0, dev), 20000, cfg.ensize_K * cfg.reduced_ndim)
+    proj = rp_project_ensemble(Xp, R, K=cfg.ensize_K) * mask[None, :, None]
+    D, _, _ = prep_distance(proj, mask, symmetric=False)
+    return D.contiguous(), n_cells
 
 
 def phase_kernels(dev, record, Xbig, ybig):
@@ -513,22 +564,11 @@ def phase_kernels(dev, record, Xbig, ybig):
     from sharp_tpu_torch.ops import linkage_cuda
     from sharp_tpu_torch.ops.linkage import rnn_tail, validate_merge_sequence, ward_linkage_rnn
     from sharp_tpu_torch.ops.linkage_cuda import cutree_snapshots_kernel, rnn_tail_kernel
-    from sharp_tpu_torch.ops.rp import rp_project_ensemble, ternary_rp_matrix
-    from sharp_tpu_torch.ops.select import prep_distance
-    from sharp_tpu_torch.utils.prng import fixed_generator
-    from synth import make_tpm_like
 
     rows = {}
     # --- small-tier shapes -------------------------------------------------
     cfg = resolve_config(479, 20000, **SEED_KW)
-    X, _ = make_tpm_like(n_cells=479, n_genes=20000, n_types=7, seed=0)
-    Xp = torch.zeros((512, 20000), device=dev)
-    Xp[:479] = torch.from_numpy(np.log2(1.0 + X)).to(dev)
-    mask = torch.arange(512, device=dev) < 479
-    R = ternary_rp_matrix(fixed_generator(0, dev), 20000, cfg.ensize_K * cfg.reduced_ndim)
-    proj = rp_project_ensemble(Xp, R, K=cfg.ensize_K) * mask[None, :, None]
-    D, _, _ = prep_distance(proj, mask, symmetric=False)
-    _hold_ward_and_cutree("ward_15x512", D.contiguous(), 479, rows)
+    _hold_ward_and_cutree("ward_15x512", *_small_tier_distance(dev, 479), rows)
     y = np.random.default_rng(1).integers(0, 7, 479)
     D, n_real = _wmetac_problem(dev, cfg, [y], 512, seed=0)
     _hold_ward_and_cutree(f"ward_1x{D.shape[-1]}", D, n_real, rows)
@@ -2018,6 +2058,179 @@ def phase_surface(dev, record, Xbig, flagship):
     return counts
 
 
+def _launches_of(fn, counts):
+    """fn() with every kernel's launch count set to 0 just before it and
+    read just after, the card synchronised; the counts are added to
+    `counts` and returned beside fn's result."""
+    import torch
+
+    from sharp_tpu_torch.ops import linkage_cuda
+
+    linkage_cuda.LAUNCHES.update(dict.fromkeys(linkage_cuda.LAUNCHES, 0))
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(linkage_cuda.LAUNCHES)
+    for k, v in got.items():
+        counts[k] = counts.get(k, 0) + v
+    return out, got
+
+
+def _same_link(a, b):
+    import torch
+
+    return torch.equal(a.merges, b.merges) and torch.equal(a.heights, b.heights)
+
+
+def phase_surface_jit(dev, record, Xbig):
+    """Phase 10 (d), after (b): the JAX package's jit-compiled entry points
+    on the card, each call's launches counted apart from the comparisons.
+    (i) ward_linkage_fast and ward_linkage_deferred on (a)'s (15, 512), (b)'s
+    (15, 1024) and phase 3's tied (1, 1024) problem: one serial Ward launch
+    each, merges and heights identical to ward_linkage_serial and to the
+    plain loop; their times. (ii) ward_linkage_deferred(method=m) for the
+    other monotone methods on lane 0 of (a): no launch, identical to the
+    plain loop on the CPU. (iii) ward_linkage_rnn with tail "xla" and
+    "auto" on (d)'s first fold group (80, 2048), f32 and bf16: identical;
+    the tail kernel launched 0 and 1 times. (iv) opt_hclust on that group
+    with precomputed_link: labels, k and maxsil of the call without it, no
+    linkage launch, one cut replay. (v) fold_program on (d)'s first 16
+    folds (16, 2048): indN_cluster=6 without has_indN is indN_cluster=None;
+    with has_indN=True every member's k is 6. Returns the launches."""
+    import torch
+
+    from sharp_tpu_torch.config import pad_dim
+    from sharp_tpu_torch.core.fold import fold_program, fold_static_args
+    from sharp_tpu_torch.ops.linkage import (
+        MONOTONE_METHODS, ward_linkage, ward_linkage_deferred, ward_linkage_fast, ward_linkage_rnn,
+    )
+    from sharp_tpu_torch.ops.linkage_cuda import ward_linkage_serial
+    from sharp_tpu_torch.ops.rp import ternary_rp_matrix
+    from sharp_tpu_torch.ops.select import opt_hclust, prep_distance
+    from sharp_tpu_torch.utils.prng import fixed_generator
+
+    t0 = time.perf_counter()
+    out, counts = {}, {}
+
+    # (i) the serial Ward entry points
+    problems = {
+        "wang_15x512": _small_tier_distance(dev, 479)[0],
+        "cells_15x1024": _small_tier_distance(dev, 1000)[0],
+        "smetac_tied_1x1024": _smetac_like_problem(dev, 1024, 1000, seed=3),
+    }
+    entries = {"ward_linkage_fast": ward_linkage_fast,
+               "ward_linkage_deferred": lambda D: ward_linkage_deferred(D, flush=64)}
+    rows = out["serial_ward"] = {}
+    for pname, D in problems.items():
+        K, n = D.shape[0], D.shape[-1]
+        kernel = ward_linkage_serial(D)
+        plain = ward_linkage(D)
+        torch.cuda.synchronize()
+        if not _same_link(kernel, plain):
+            raise AssertionError(f"surface (d) (i) {pname}: ward_linkage_serial differs from the plain loop")
+        for ename, fn in entries.items():
+            link, got = _launches_of(lambda: fn(D), counts)
+            if got["ward_serial"] != 1 or sum(got.values()) != 1:
+                raise AssertionError(f"surface (d) (i) {ename} {pname}: launches {got}, expected one ward_serial")
+            if not (_same_link(link, kernel) and _same_link(link, plain)):
+                raise AssertionError(f"surface (d) (i) {ename} {pname}: merges or heights differ from "
+                                     f"ward_linkage_serial or the plain loop")
+            bound, by = _bound(_nbytes(D, link.merges, link.heights), 10.0 * K * (n - 1) * n)
+            row = rows.setdefault(ename, {})[pname] = dict(
+                shape=[K, n], launches=got["ward_serial"], max_abs_err=0.0, bound_ms=bound, bound_by=by,
+                ms=_median_ms(lambda: fn(D), KERNEL_REPS),
+                plain_ms=_median_ms(lambda: ward_linkage(D), PLAIN_REPS),
+            )
+            _device_ms_later(row, "device_ms", lambda fn=fn, D=D: fn(D), "ward_serial_kernel",
+                             f"surface (d) {ename} {pname}")
+            print(f"[surface] (d) (i) {ename} {pname} ({K}, {n}): one ward_serial launch; merges and heights "
+                  f"identical to ward_linkage_serial and the plain loop; {row['ms']:.3f} ms a call (plain "
+                  f"{row['plain_ms']:.3f} ms, bound {bound * 1e3:.2f} us)", flush=True)
+
+    # (ii) the other monotone methods: the plain loop on either device
+    D0 = problems["wang_15x512"][0].contiguous()
+    D0_cpu = D0.cpu()
+    rows = out["deferred_methods"] = {}
+    for method in sorted(MONOTONE_METHODS - {"ward.D"}):
+        link, got = _launches_of(lambda: ward_linkage_deferred(D0, method=method), counts)
+        ref = ward_linkage(D0_cpu, method=method)
+        same = torch.equal(link.merges.cpu(), ref.merges) and torch.equal(link.heights.cpu(), ref.heights)
+        print(f"[surface] (d) (ii) ward_linkage_deferred(method={method!r}) {tuple(D0.shape)}: launches {sum(got.values())}; "
+              f"{'identical to' if same else 'DIFFERS from'} the plain loop on the CPU", flush=True)
+        if sum(got.values()) or not same:
+            raise AssertionError(f"surface (d) (ii) {method}: launches {got}, identical to the CPU {same}")
+        rows[method] = dict(launches=sum(got.values()), identical_to_cpu=same)
+    del problems, D0, D0_cpu
+    torch.cuda.empty_cache()
+
+    # (iii) the ladder's tail, and (iv) opt_hclust with its merges given
+    proj, mask, n_real, cfg = _fold_group_features(Xbig, dev)
+    D = prep_distance(proj, mask, symmetric=False)[0].contiguous()
+    levels = max(0, math.ceil(math.log2(D.shape[-1] / 256)))   # ladder levels above the tail's 256
+    rows = out["rnn_tail"] = {}
+    for store_name, store in (("f32", None), ("bf16", torch.bfloat16)):
+        xla, got_x = _launches_of(lambda: ward_linkage_rnn(D, store_dtype=store, tail="xla"), counts)
+        auto, got_a = _launches_of(lambda: ward_linkage_rnn(D, store_dtype=store, tail="auto"), counts)
+        same = _same_link(xla, auto)
+        print(f"[surface] (d) (iii) ward_linkage_rnn {tuple(D.shape[:2])} {store_name}: tail 'xla' launches "
+              f"{got_x}, tail 'auto' launches {got_a}; merges and heights {'identical' if same else 'DIFFER'}",
+              flush=True)
+        if not same or got_x["rnn_tail"] != 0 or got_a["rnn_tail"] != 1 or got_a["rnn_round"] < levels:
+            raise AssertionError(f"surface (d) (iii) {store_name}: identical {same}, launches {got_x}, {got_a}")
+        rows[store_name] = dict(xla_launches=got_x, auto_launches=got_a, identical=same)
+        if store is None:
+            link = auto
+        del xla, auto
+    del D
+    torch.cuda.empty_cache()
+    st = fold_static_args(cfg)
+    kw = dict(symmetric=False, minN=st["minN"], ncand=st["ncand"], nc_pad=st["nc_pad"])
+    base, _ = _launches_of(lambda: opt_hclust(proj, mask, n_real, st["maxN"], **kw), counts)
+    given, got = _launches_of(lambda: opt_hclust(proj, mask, n_real, st["maxN"], precomputed_link=link, **kw),
+                              counts)
+    same = all(torch.equal(getattr(given, f), getattr(base, f)) for f in ("labels", "k", "maxsil"))
+    linkage_launches = sum(v for k, v in got.items() if k != "cutree")
+    print(f"[surface] (d) (iv) opt_hclust {tuple(proj.shape)} with precomputed_link: launches {got}; labels, k "
+          f"and maxsil {'identical to' if same else 'DIFFER from'} the call without it (k "
+          f"{base.k.tolist()[:5]}...)", flush=True)
+    if not same or linkage_launches or got["cutree"] != 1:
+        raise AssertionError(f"surface (d) (iv): identical {same}, launches {got}")
+    out["opt_hclust_precomputed_link"] = dict(launches=got, identical=same)
+    del proj, mask, link, base, given
+    torch.cuda.empty_cache()
+
+    # (v) fold_program's has_indN on the group's 16 folds
+    genes, B = Xbig.shape[1], pad_dim(FOLD)
+    Xg = torch.zeros((GROUP, B, genes), device=dev)
+    for g in range(GROUP):
+        Xg[g, :FOLD] = torch.from_numpy(Xbig[g * FOLD : (g + 1) * FOLD]).to(dev)
+    sizes = [FOLD] * GROUP
+    masks = (torch.arange(B)[None, :] < torch.tensor(sizes)[:, None]).to(dev)
+    R = ternary_rp_matrix(fixed_generator(0, dev), genes, cfg.ensize_K * cfg.reduced_ndim)
+    runs = {}
+    for name, indN, has in (("none", None, False), ("indN6", 6, False), ("indN6_has_indN", 6, True)):
+        runs[name], _ = _launches_of(
+            lambda: fold_program(Xg, masks, sizes, R, True, indN, has_indN=has, **st), counts)
+    same = all(torch.equal(getattr(runs["indN6"], f), getattr(runs["none"], f))
+               for f in ("finalC", "n_meta", "k_per", "maxsil"))
+    fixed = bool((runs["indN6_has_indN"].k_per == 6).all())
+    print(f"[surface] (d) (v) fold_program {tuple(Xg.shape)}: indN_cluster=6 without has_indN "
+          f"{'identical to' if same else 'DIFFERS from'} indN_cluster=None (k_per of fold 0 "
+          f"{runs['none'].k_per[0].tolist()}); with has_indN=True every member's k is 6: {fixed}", flush=True)
+    if not same or not fixed:
+        raise AssertionError(f"surface (d) (v): indN ignored {same}, k fixed to 6 {fixed}")
+    out["fold_program_has_indN"] = dict(ignored_without_has_indN=same, fixed_with_has_indN=fixed,
+                                        k_per_free_fold0=runs["none"].k_per[0].tolist())
+    del Xg, runs
+    torch.cuda.empty_cache()
+    if min(counts.values()) < 1:
+        raise AssertionError(f"surface (d): a kernel was never launched: {counts}")
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[surface] (d) launches of the entry-point calls {counts}; phase {out['phase_s']:.1f} s", flush=True)
+    record.setdefault("surface", {})["jit_surface"] = out
+    return counts
+
+
 def phase_surface_codec(record, flag6):
     """Phase 10 (c): the SBLK codec on the first of phase 6 (b)'s blocks,
     50,000 x 27,998: built with g++ and loaded; densify on 1 thread and on
@@ -2205,6 +2418,7 @@ def main() -> int:
     phase_slice(dev, record)
     large_counts, flagship = phase_large(dev, record, Xbig, ybig)
     surface_counts = phase_surface(dev, record, Xbig, flagship)
+    jit_counts = phase_surface_jit(dev, record, Xbig)
     analysis_counts = phase_analysis(dev, record, Xbig, flagship)
     par_counts = phase_parallel_folds(dev, record, Xbig, ybig, flagship)
     del Xbig, ybig, flagship
@@ -2240,8 +2454,9 @@ def main() -> int:
         # launches: sharp_unlimited over the 4 flagship blocks (problems: the
         # problems or lanes those launches took); launches_by_path adds the
         # large tier's flagship run, phase 7 (a)'s gethclust calls, the
-        # flagship block over two shards, the bench's compute path and
-        # phase 10 (a)'s flagship run at group 4.
+        # flagship block over two shards, the bench's compute path,
+        # phase 10 (a)'s flagship run at group 4 and phase 10 (d)'s
+        # entry-point calls.
         # ms: one call through the wrapper (CUDA events); device_ms: the
         # kernel alone (torch.profiler), null where not measured. The round's
         # wrapper launches both of its kernels: rnn_round's ms is the whole
@@ -2255,7 +2470,8 @@ def main() -> int:
             "library_ms": None, "device_ms": device_ms,
             "launches_by_path": {"large": large_counts[name], "unlimited": unl_counts[name],
                                  "analysis": analysis_counts[name], "parallel": par_counts[name],
-                                 "bench": bench_counts[name], "surface": surface_counts[name]},
+                                 "bench": bench_counts[name], "surface": surface_counts[name],
+                                 "phase 10 (d)": jit_counts[name]},
         }
 
     kernels = {

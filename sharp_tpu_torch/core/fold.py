@@ -72,9 +72,14 @@ def fold_program(
     sil_thre: float,
     height_Ntimes: float,
     maxN: int,
+    has_indN: bool = False,
     linkage_backend: str = "auto",
     hmethod: str = "ward.D",
 ) -> FoldSummary:
+    """The fold program of one fold X (B, genes) or a group of G folds
+    (G, B, genes). `indN_cluster` fixes every member's cluster count only
+    when `has_indN` is true, as in the JAX package
+    (sharp_tpu/core/fold.py:91); otherwise each member picks its own."""
     folded = X.dim() == 3
     Xf = X if folded else X[None]
     masks = mask if folded else mask[None]
@@ -84,7 +89,8 @@ def fold_program(
         Xf, masks, nreal, R_all, maxN, log_transform,
         K=K, minN=minN, ncand=ncand, nc_pad=nc_pad,
         sil_thre=sil_thre, height_Ntimes=height_Ntimes,
-        indN_cluster=indN_cluster, linkage_backend=linkage_backend, hmethod=hmethod,
+        indN_cluster=indN_cluster if has_indN else None, linkage_backend=linkage_backend,
+        hmethod=hmethod,
     )
     out = fold_summary(
         blk, masks, nreal, K=K, minN=minN, ncand=ncand, nc_pad=nc_pad, allc_pad=allc_pad,

@@ -112,7 +112,7 @@ def process_fold(
     mask = torch.arange(block_pad) < n_fold
     s = fold_program(
         Xp.to(dev), mask.to(dev), n_fold, R_all.to(dev), logf, cfg.indN_cluster,
-        **fold_static_args(cfg),
+        has_indN=cfg.indN_cluster is not None, **fold_static_args(cfg),
     )
     return summary_to_host(s, n_fold, forview=cfg.forview)
 

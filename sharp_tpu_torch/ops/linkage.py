@@ -11,6 +11,11 @@ Counterpart of `sharp_tpu/ops/linkage.py`. The reference bottoms out in
     the merge as (min, max).
   * `cutree_multi` replays the merge sequence once and snapshots the labels
     at every candidate k in [minN, minN+ncand).
+  * `ward_linkage_fast` and `ward_linkage_deferred` are the JAX package's
+    serial ward.D entry points: the serial Ward kernel on the card
+    (`ops/linkage_cuda.ward_linkage_serial`), `ward_linkage` on the CPU;
+    the deferred one takes the other monotone hmethods through
+    `ward_linkage`.
   * `ward_linkage_rnn` is the reciprocal-nearest-neighbour ladder for
     large problems: rounds merge every mutual-NN pair at once (`rnn_round`:
     `RnnLadder.round`, its scatter `rnn_round_scatter`, and the next
@@ -67,6 +72,10 @@ def lw_update(method: str, dik, djk, h, ni, nj, nk):
         return (ni * dik + nj * djk) / s - (ni * nj * h) / (s * s)
     raise ValueError(f"unknown hmethod {method!r}")
 
+
+MONOTONE_METHODS = frozenset(
+    {"ward.D", "ward.D2", "ward", "single", "complete", "average", "mcquitty"}
+)
 
 HMETHODS = (
     "ward.D", "ward.D2", "single", "complete", "average", "mcquitty",
@@ -178,6 +187,59 @@ def ward_linkage(
     )
 
 
+def ward_linkage_fast(D: torch.Tensor) -> LinkageResult:
+    """ward.D agglomeration of float32 D (n, n), or of a batch (K, n, n),
+    with float32 storage: the port of `sharp_tpu/ops/linkage.py:
+    ward_linkage_fast`.
+
+    The JAX function replaces the full argmin of `ward_linkage` by a lazy
+    row-minimum cache, with the same output. So does the serial Ward
+    kernel, which this takes on a CUDA tensor (`ops.linkage_cuda.
+    ward_linkage_serial`, counted in `LAUNCHES["ward_serial"]`); a CPU
+    tensor takes `ward_linkage(D, "ward.D")`. Both give the same merges and
+    heights, bit for bit. D is read as symmetric from its upper triangle
+    (the JAX function reads all of it: the same for the symmetric D that
+    every caller passes).
+    """
+    from sharp_tpu_torch.ops.linkage_cuda import ward_linkage_serial
+
+    return ward_linkage_serial(D.contiguous(), store_dtype=torch.float32)
+
+
+def ward_linkage_deferred(
+    D: torch.Tensor, flush: int = 64, unroll: int = 1, eager_w: int = 0,
+    method: str = "ward.D",
+) -> LinkageResult:
+    """Agglomeration of D (n, n), or a batch (K, n, n), for a monotone
+    hmethod: the port of `sharp_tpu/ops/linkage.py:ward_linkage_deferred`,
+    the linkage the JAX package's `opt_hclust` takes for every monotone
+    hmethod.
+
+    ward.D takes `ward_linkage_fast`: the serial Ward kernel on a CUDA
+    tensor, `ward_linkage` on a CPU tensor. The other methods of
+    `MONOTONE_METHODS` take `ward_linkage(D, method)` on either device: no
+    kernel computes them, in the JAX package either (its Pallas kernel is
+    ward.D only). A non-monotone method raises, as in the JAX package.
+
+    `flush` (the dirty-column epoch), `unroll` and `eager_w` (the eager
+    revalidation width) shape the JAX function's XLA loop and not its
+    output, so they leave this one's unchanged; they are checked where
+    the JAX function would fail (a flush that is not an int >= 1, a width
+    that is not an int). D is read as symmetric from its upper triangle,
+    as in `ward_linkage_fast`.
+    """
+    if method not in MONOTONE_METHODS:
+        raise ValueError(f"hmethod {method!r} is non-monotone; use ward_linkage instead")
+    for name, v in (("flush", flush), ("unroll", unroll), ("eager_w", eager_w)):
+        if not isinstance(v, (int, np.integer)):
+            raise TypeError(f"ward_linkage_deferred takes an int {name}, got {v!r}")
+    if flush < 1:
+        raise ValueError(f"ward_linkage_deferred takes flush >= 1, got {flush}")
+    if method == "ward.D":
+        return ward_linkage_fast(D)
+    return ward_linkage(D, method=method)
+
+
 def _store_round(x: torch.Tensor, st: torch.dtype) -> torch.Tensor:
     """x rounded to the storage dtype and read back in x's dtype: bf16
     rounds to nearest even, as the JAX package's `lax.reduce_precision(x,
@@ -284,16 +346,18 @@ def rnn_round_scatter(
     return rowmin.float(), rowarg
 
 
-ROUND_IMPLS = ("auto", "xla", "pallas")
+ROUND_IMPLS = ("auto", "xla", "pallas", "pallas_interpret")
+TAILS = ("auto", "xla", "pallas", "pallas_interpret")
 # rounds the level loop of `rnn_ladder` runs between two host reads
 LADDER_READ_EVERY = 8
 
 
 def _round_fused(round_impl: str) -> bool:
-    """Whether the ladder's rounds go through the round kernel: "auto" and
-    "pallas" do (`rnn_round_kernel`, which takes its plain version
-    `rnn_round` for a CPU tensor); "xla" keeps the rounds in plain PyTorch,
-    each round computing its row cache from the matrix."""
+    """Whether the ladder's rounds go through the round kernel: "auto",
+    "pallas" and "pallas_interpret" (the JAX package's interpreted kernel,
+    for its CPU tests) do (`rnn_round_kernel`, which takes its plain
+    version `rnn_round` for a CPU tensor); "xla" keeps the rounds in plain
+    PyTorch, each round computing its row cache from the matrix."""
     if round_impl not in ROUND_IMPLS:
         raise ValueError(f"unknown round_impl {round_impl!r} (one of {ROUND_IMPLS})")
     return round_impl != "xla"
@@ -570,6 +634,7 @@ def ward_linkage_rnn(
     store_dtype: Optional[torch.dtype] = None,
     compact_n: int = 256,
     compact_cap: int = 32,
+    tail: str = "auto",
     round_impl: str = "auto",
 ) -> LinkageResult:
     """ward.D agglomeration by reciprocal-nearest-neighbour rounds over D
@@ -577,26 +642,35 @@ def ward_linkage_rnn(
     ward_linkage_rnn`.
 
     `rnn_ladder` runs the rounds; the compacted subproblem is drained in
-    strict serial order by `rnn_tail_kernel` (the plain `rnn_tail` for a
-    CPU tensor); the serial order is recovered by a stable sort on the
-    recorded heights, which are clamped to each cluster's previous record.
+    strict serial order by the tail; the serial order is recovered by a
+    stable sort on the recorded heights, which are clamped to each
+    cluster's previous record.
+
+    `tail` takes the JAX package's names: "auto", "pallas" and
+    "pallas_interpret" drain through `rnn_tail_kernel` (the plain
+    `rnn_tail` for a CPU tensor); "xla" takes the plain `rnn_tail` on
+    either device, the counterpart of the JAX package's XLA tail (its
+    mutual-NN rounds give the same merges after the stable sort).
 
     `store_dtype` (float32 or bfloat16, default D's dtype) is the matrix
     storage; the Lance-Williams arithmetic stays float32. `round_impl`
     takes the JAX package's names: "xla" keeps the rounds in plain
     PyTorch; "pallas" runs each round through `rnn_round_kernel` (its
     plain version on a CPU tensor), which also carries the row cache to
-    the next round; "auto" is "pallas" (the TPU kept its fused round
-    opt-in for a cost of its own compiler, which does not apply here). The
-    output is identical either way. `compact_cap` is accepted for
-    signature parity: it sizes the JAX package's round-based tail, which
-    the serial tail replaces.
+    the next round; "pallas_interpret" is "pallas"; "auto" is "pallas"
+    (the TPU kept its fused round opt-in for a cost of its own compiler,
+    which does not apply here). The output is identical either way.
+    `compact_cap` is accepted for signature parity: it sizes the JAX
+    package's round-based tail, which the serial tail replaces.
     """
     from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
 
+    if tail not in TAILS:
+        raise ValueError(f"unknown tail {tail!r} (one of {TAILS})")
+    drain = rnn_tail if tail == "xla" else rnn_tail_kernel
     squeeze = D.dim() == 2
     ladder = rnn_ladder(D[None] if squeeze else D, pair_cap, store_dtype, compact_n, round_impl)
-    link = ladder.finish(*rnn_tail_kernel(*ladder.tail_inputs()))
+    link = ladder.finish(*drain(*ladder.tail_inputs()))
     return LinkageResult(link.merges[0], link.heights[0]) if squeeze else link
 
 

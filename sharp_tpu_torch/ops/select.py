@@ -236,6 +236,7 @@ def opt_hclust(
     height_Ntimes: float = 2.0,
     N_cluster=None,
     height_tail: int = 10,
+    precomputed_link=None,
     hmethod: str = "ward.D",
     linkage_backend: str = "auto",
 ) -> OptHclust:
@@ -247,6 +248,11 @@ def opt_hclust(
     The L linkages go to one linkage call and one cut-replay launch, the
     selection to one `select_cut`. With `N_cluster` the sweep still runs
     but the choice is forced to that candidate (R/get_opt_hclust.R:90-107).
+
+    `precomputed_link` (a `LinkageResult`: merges ([L,] n_pad - 1, 2)
+    int32 and heights ([L,] n_pad - 1) float32 on mat's device, with the
+    lane axis where mat has one) takes the place of the linkage call, as
+    in the JAX package; the cut replay and the selection still run.
     """
     squeeze = mat.dim() == 2
     if squeeze:
@@ -254,7 +260,10 @@ def opt_hclust(
     real_mask = real_mask.expand(mat.shape[0], real_mask.shape[-1])
     backend = resolve_linkage_backend(linkage_backend, real_mask.shape[-1], hmethod)
     D, D_real, feats_unit = prep_distance(mat, real_mask, symmetric)
-    link = linkage(D.contiguous(), backend, hmethod)
+    if precomputed_link is None:
+        link = linkage(D.contiguous(), backend, hmethod)
+    else:
+        link = _given_link(precomputed_link, mat, squeeze)
     del D
     nr = counts_per_problem(n_real, mat.shape[0], mat.device)
     cuts = cutree_multi_kernel(
@@ -266,6 +275,21 @@ def opt_hclust(
         height_Ntimes=height_Ntimes, N_cluster=N_cluster, height_tail=height_tail,
     )
     return OptHclust(*(x[0] for x in res)) if squeeze else res
+
+
+def _given_link(link, mat: torch.Tensor, squeeze: bool) -> LinkageResult:
+    """`opt_hclust`'s precomputed_link, checked against mat (L, n_pad, .)
+    and given the lane axis where mat had none."""
+    L, n = mat.shape[0], mat.shape[1]
+    lead = () if squeeze else (L,)
+    merges, heights = link
+    if (tuple(merges.shape) != (*lead, n - 1, 2) or tuple(heights.shape) != (*lead, n - 1)
+            or merges.device != mat.device or heights.device != mat.device):
+        raise ValueError(
+            f"precomputed_link takes merges {(*lead, n - 1, 2)} and heights {(*lead, n - 1)} on "
+            f"{mat.device}, got {tuple(merges.shape)} and {tuple(heights.shape)} on {merges.device}"
+        )
+    return LinkageResult(merges[None], heights[None]) if squeeze else LinkageResult(merges, heights)
 
 
 def _pad_problem(mat: np.ndarray, symmetric: bool):

@@ -223,7 +223,7 @@ def _fold_groups(
         t0 = _now(timing)
         masks = (torch.arange(block_pad)[None, :] < torch.tensor(gsizes)[:, None]).to(dev)
         if ens is None:
-            out = fold_program(Xg, masks, gsizes, R_all, eff_logf, indN, **static)
+            out = fold_program(Xg, masks, gsizes, R_all, eff_logf, indN, has_indN=indN is not None, **static)
         else:
             out = ens(Xg, masks, gsizes, eff_logf, indN)
         del Xg

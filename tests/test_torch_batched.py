@@ -33,7 +33,7 @@ from sharp_tpu.ops import select as jsel
 from sharp_tpu.ops import silhouette as jsil
 from sharp_tpu_torch.config import resolve_config as t_resolve_config
 from sharp_tpu_torch.core import large as tlarge
-from sharp_tpu_torch.core import wmetac as twmetac
+from sharp_tpu_torch.core.wmetac import wmetac as twmetac
 from sharp_tpu_torch.core.fold import fold_program, fold_static_args
 from sharp_tpu_torch.ops import linkage as tlink
 from sharp_tpu_torch.ops import select as tsel
@@ -232,7 +232,7 @@ def test_wmetac_over_folds_matches_vmapped_jax():
     ref = jax.vmap(lambda lab, m, nr, mx: j_wmetac(lab, m, nr, mx, **kw))(
         *(jnp.asarray(a) for a in (labels, masks, n, maxN))
     )
-    got = twmetac.wmetac(*(torch.from_numpy(a) for a in (labels, masks, n, maxN)), **kw)
+    got = twmetac(*(torch.from_numpy(a) for a in (labels, masks, n, maxN)), **kw)
     assert list(np.asarray(ref.overflow)) == [False, True, False]
     assert int(np.asarray(ref.n_meta)[2]) == 2   # the fallback split the one cluster
     for field in ("finalC", "n_meta", "x0", "tf", "allC", "overflow"):

@@ -1,14 +1,17 @@
 """The port's surface against the JAX package's, on the CPU.
 
 For every module of `sharp_tpu` and every public function and class it
-defines, the module of the same name in `sharp_tpu_torch` has a counterpart
+defines (a function under `jax.jit` is read through its `__wrapped__`
+function), the module of the same name in `sharp_tpu_torch` has a counterpart
 of the same name that takes every JAX parameter by name; the JAX
 positional parameters are, in order, a prefix of the port's positional
 parameters, with equal defaults wherever the JAX package has one (dtypes
 compared by name). The port may add parameters after them, or keyword-only
-ones. Beside the functions: `SharpConfig`'s fields and defaults, the CLI
-subcommands' arguments, and the `SHARP_TPU_*` environment variables each
-package reads.
+ones. Beside the functions: the UPPER_CASE constants each module assigns
+(equal values), the names each subpackage's `__init__` exports (`__all__`:
+the same kind of object, the one of the module the JAX object comes from),
+`SharpConfig`'s fields and defaults, the CLI subcommands' arguments, and
+the `SHARP_TPU_*` environment variables each package reads.
 
 `EXCLUSIONS` lists what differs on purpose, one reason per row; a row that
 no longer names a difference fails `test_every_exclusion_names_a_difference`.
@@ -21,6 +24,7 @@ import importlib
 import inspect
 import os
 import pkgutil
+import re
 
 import numpy as np
 import pytest
@@ -34,7 +38,7 @@ KEY = ("threefry key: torch cannot reproduce JAX's threefry streams, so the port
 PRNG = "a threefry key helper of utils/prng: " + KEY
 
 # what: "module", "module.name", "module.name(param)", "cli --flag" or
-# "env NAME"; stand-in: the port's parameters in place of a JAX parameter
+# "env NAME" ("package.name" for a subpackage's export); stand-in: the port's parameters in place of a JAX parameter
 EXCLUSIONS = {
     "ops.linkage_pallas": (None, "the Pallas kernels; the port's are ops/linkage_cuda over csrc/*.cu"),
     "utils.cache": (None, "turns on JAX's compilation cache; the port compiles nothing but its kernels "
@@ -43,6 +47,8 @@ EXCLUSIONS = {
     "utils.prng.member_key": (None, PRNG),
     "utils.prng.shuffle_key": (None, PRNG),
     "utils.prng.testlog_key": (None, PRNG),
+    "utils.seed_to_key": (None, PRNG),
+    "utils.member_key": (None, PRNG),
     "core.pipeline.testlog_decide(key)": (("rN_seed",), KEY),
     "core.pipeline.resolve_log_transform(key)": (("rN_seed",), KEY),
     "core.pipeline.sharp_small(key)": (("rN_seed", "device"), KEY),
@@ -66,13 +72,32 @@ JAX_MODULES = sorted(
 )
 
 
+def _unjit(obj):
+    """The Python function under a `jax.jit` wrapper (a callable whose
+    `__wrapped__` is a function), else obj itself."""
+    inner = getattr(obj, "__wrapped__", None)
+    if callable(obj) and not inspect.isfunction(obj) and inspect.isfunction(inner):
+        return inner
+    return obj
+
+
+def _kind(obj):
+    obj = _unjit(obj)
+    if inspect.ismodule(obj):
+        return "module"
+    return "function" if inspect.isfunction(obj) else "class" if inspect.isclass(obj) else None
+
+
 def _public(mod):
-    """The public functions and classes a module defines itself."""
-    return {
-        name: obj for name, obj in vars(mod).items()
-        if not name.startswith("_") and (inspect.isfunction(obj) or inspect.isclass(obj))
-        and getattr(obj, "__module__", None) == mod.__name__
-    }
+    """The public functions (jit-wrapped ones through `_unjit`) and classes
+    a module defines itself."""
+    out = {}
+    for name, obj in vars(mod).items():
+        obj = _unjit(obj)
+        if (not name.startswith("_") and _kind(obj)
+                and getattr(obj, "__module__", None) == mod.__name__):
+            out[name] = obj
+    return out
 
 
 def _positional(sig):
@@ -149,12 +174,71 @@ def test_module_surface_matches_the_jax_package(module):
     assert not gaps, gaps
 
 
+JAX_PACKAGES = sorted(m.name[len("sharp_tpu."):] for m in pkgutil.iter_modules(sharp_tpu.__path__, "sharp_tpu.")
+                      if m.ispkg)
+
+
+def _export_differences(package: str):
+    """{"package.name": what is wrong} for each name of the JAX subpackage's
+    `__all__` that the port's subpackage lacks, exports as another kind of
+    object, or takes from elsewhere than the port's module of the JAX
+    object's module."""
+    jp = importlib.import_module("sharp_tpu." + package)
+    tp = importlib.import_module("sharp_tpu_torch." + package)
+    out = {}
+    for name in jp.__all__:
+        theirs, ours = _unjit(getattr(jp, name)), getattr(tp, name, None)
+        what = f"{package}.{name}"
+        if ours is None:
+            out[what] = "missing"
+        elif _kind(ours) != _kind(theirs):
+            out[what] = f"a {_kind(ours)} in the port, a {_kind(theirs)} in the JAX package"
+        else:
+            home = "sharp_tpu_torch" + theirs.__module__[len("sharp_tpu"):]
+            if getattr(importlib.import_module(home), name, None) is not ours:
+                out[what] = f"not the object of {home}"
+    return out
+
+
+@pytest.mark.parametrize("package", JAX_PACKAGES)
+def test_subpackage_exports_match_the_jax_package(package):
+    gaps = {k: v for k, v in _export_differences(package).items() if k not in EXCLUSIONS}
+    assert not gaps, gaps
+
+
+_CONSTANT = re.compile(r"[A-Z][A-Z0-9_]*")
+
+
+def _constants(mod):
+    """{name: value} of the UPPER_CASE names the module's source assigns at
+    its top level (imported names are the other module's)."""
+    names = set()
+    for node in ast.parse(inspect.getsource(mod)).body:
+        targets = node.targets if isinstance(node, ast.Assign) else [node.target] if isinstance(
+            node, ast.AnnAssign) else []
+        names |= {t.id for t in targets if isinstance(t, ast.Name) and _CONSTANT.fullmatch(t.id)}
+    return {n: getattr(mod, n) for n in names if not inspect.ismodule(getattr(mod, n))}
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_module_constants_match_the_jax_package(module):
+    if module in EXCLUSIONS:
+        return
+    theirs = _constants(importlib.import_module("sharp_tpu." + module))
+    ours = importlib.import_module("sharp_tpu_torch." + module)
+    gaps = {n: (v, getattr(ours, n, "missing")) for n, v in theirs.items()
+            if not (hasattr(ours, n) and getattr(ours, n) == v)}
+    assert not gaps, gaps
+
+
 def test_every_exclusion_names_a_difference():
     """Each row of the table excuses a difference that exists, and has a
     reason."""
     found = {}
     for module in JAX_MODULES:
         found.update(_differences(module))
+    for package in JAX_PACKAGES:
+        found.update(_export_differences(package))
     found.update({f"cli {f}": "" for f in _cli_differences()})
     found.update({f"env {v}": "" for v in _env_vars("sharp_tpu") ^ _env_vars("sharp_tpu_torch")})
     for key, (_, reason) in EXCLUSIONS.items():
