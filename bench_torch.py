@@ -637,16 +637,7 @@ def api_bench(blocks, n_genes, n_types, K, p, fold, min_ari, dev, sub_blocks=Non
     run_blocks = blocks[:S]
     n_cells = sum(run_blocks)
     ddir = benchdata.dataset_dir(full_cells, G, n_types, keep)
-    os.makedirs(ddir, exist_ok=True)
-
-    datagen_s = 0.0
-    missing = [bi for bi in range(S) if not os.path.exists(os.path.join(ddir, f"block_{bi:05d}.sblk"))]
-    if missing:
-        t0 = time.time()
-        tm, top, n_top = benchdata.type_means(G, n_types, keep)
-        for bi in missing:
-            benchdata.gen_block(os.path.join(ddir, f"block_{bi:05d}.sblk"), bi, blocks[bi], G, keep, tm, top, n_top)
-        datagen_s = time.time() - t0
+    datagen_s = benchdata.make_blocks(ddir, run_blocks, G, n_types, keep)
     y = np.concatenate([benchdata.block_y(bi, bn, n_types) for bi, bn in enumerate(run_blocks)])
 
     api_kw = dict(

@@ -187,6 +187,23 @@ Phases, in order; any failure raises and the script exits non-zero:
               on its 16 folds (16, 2048): indN_cluster=6 without has_indN
               gives indN_cluster=None's result, with has_indN=True every
               member's k is 6.
+ 11. multihost26  scripts/multihost_26block_torch.py's configurations, after
+              phase 9, through the script's functions: two processes on this
+              card (gloo on a free localhost port, LOCAL_WORLD_SIZE=2), 13 of
+              the 26 SBLK blocks each. (a) Mechanics: 26 x 2,000 cells x 400
+              genes, n_cells declared 1,306,127 (the widened cluster range
+              and all-gather budget): the processes agree on the cluster
+              count, 26 manifests of one fingerprint, a resume run from them
+              that runs no fold pass, launches nothing outside the global
+              fuse and gives the cold labels, and one process's labels equal
+              the two's. (b) Quality: 26 x 2,000 cells, 8 types at 600
+              genes, K=8, p=128: ARI >= 0.9, one process = two. (c) The
+              flagship: the bench's 26 SBLK blocks (1,306,127 x 27,998, made
+              where missing into io.benchdata's cache, about 21 GB, and
+              kept) with its API path's knobs: the checks of (a), ARI >=
+              0.80 with at most 57 clusters, and every kernel launched in
+              each process's cold run. Prints the cold, resume and
+              one-process walls, each worker's seconds and summary_gather.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it holds the card's name and power limit as nvidia-smi prints them,
@@ -194,8 +211,9 @@ and the one before that the kernels' JSON record: per kernel its launches
 in the run of phase 6 (b) and the problems they took (and, under
 launches_by_path, its launches in the flagship run
 of phase 5 (b), in phase 7 (a)'s gethclust calls, in phase 8 (b), the
-flagship block over two shards, in phase 9's whole run, in phase 10 (a)
-and in phase 10 (d)'s entry-point calls), its largest difference from the
+flagship block over two shards, in phase 9's whole run, in phase 10 (a),
+in phase 10 (d)'s entry-point calls and, by configuration and process, in
+phase 11's cold runs), its largest difference from the
 plain version, its time
 per call (and device_ms, the kernel alone), the plain version's, its bound
 and what bounds it. The ladder round's wrapper launches two kernels, each
@@ -1595,20 +1613,14 @@ def phase_analysis(dev, record, Xbig, flagship):
 API_GENES, API_TYPES, API_KEEP, API_BLOCK, API_BLOCKS = 27998, 38, 2048, 50000, 4
 
 
-def _patched_rp(streaming, R):
-    """Inject the numpy matrix R (genes, K*p) as the streaming module's RP
-    matrix; returns the function to restore."""
-    import torch
+def _mh26():
+    """scripts/multihost_26block_torch.py as a module."""
+    path = os.path.join(HERE, "scripts")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import multihost_26block_torch
 
-    real = streaming.ensemble_rp_matrix
-
-    def fixed(seed, K, m, p, dtype=torch.float32, device="cpu"):
-        if R.shape != (m, K * p):
-            raise ValueError(f"injected RP matrix {R.shape} for ({m}, {K * p})")
-        return torch.from_numpy(R).to(device, dtype)
-
-    streaming.ensemble_rp_matrix = fixed
-    return real
+    return multihost_26block_torch
 
 
 def phase_unlimited(dev, record, tmp):
@@ -1636,7 +1648,7 @@ def phase_unlimited(dev, record, tmp):
     kw = dict(rN_seed=2103, resume=False)
     cfg = resolve_config(n, genes, rN_seed=2103)
     R = _ternary(np.random.default_rng(7500), genes, cfg.ensize_K * cfg.reduced_ndim)
-    real = _patched_rp(streaming, R)
+    real = _mh26().patched_rp(streaming, R)
     try:
         card, wall, counts, _, _ = _run_counted(small, entry="sharp_unlimited", device=dev, **kw)
         dense = sharp_tpu_torch.sharp_unlimited(small, device=dev, sparse_feed=False, **kw)
@@ -1670,10 +1682,7 @@ def phase_unlimited(dev, record, tmp):
     warm = os.path.join(tmp, "warm")
     os.makedirs(data)
     os.makedirs(warm)
-    tm, top, n_top = benchdata.type_means(API_GENES, API_TYPES, API_KEEP)
-    for bi in range(API_BLOCKS):
-        benchdata.gen_block(os.path.join(data, f"block_{bi:05d}.sblk"), bi, API_BLOCK, API_GENES,
-                       API_KEEP, tm, top, n_top)
+    benchdata.make_blocks(data, [API_BLOCK] * API_BLOCKS, API_GENES, API_TYPES, API_KEEP)
     n_cells = API_BLOCK * API_BLOCKS
     with open(os.path.join(data, "blocks.json"), "w") as fh:
         json.dump({"n_cells": n_cells, "n_genes": API_GENES, "n_blocks": API_BLOCKS}, fh)
@@ -2379,6 +2388,38 @@ def phase_bench(dev, record):
     return launches
 
 
+def phase_multihost26(record):
+    """Phase 11, after phase 9: scripts/multihost_26block_torch.py's three
+    configurations on this card through the script's functions and gates,
+    two processes of 13 blocks each (gloo on a free localhost port,
+    LOCAL_WORLD_SIZE=2): (a) mechanics, (b) quality, (c) the flagship's 26
+    SBLK blocks from io.benchdata's cache (made where missing, kept).
+    Returns each kernel's launches in each configuration's cold run, by
+    process (each worker starts at 0)."""
+    import torch
+
+    mh = _mh26()
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="sharp_smoke_mh26_")
+    recs = {}
+    try:
+        for name, timeout in (("mechanics", 240), ("quality", 240), ("flagship", 420)):
+            torch.cuda.empty_cache()   # the card's free memory, for the two processes
+            recs[name], _ = mh.RUNS[name](work, "cuda", timeout=timeout)
+            rec = recs[name]
+            print(f"[multihost26] {mh.summary(rec)}", flush=True)
+            print(f"[multihost26] {name} launches: cold {rec['cold_launches']}; resume "
+                  f"{rec.get('resume_launches')}; one process {rec['single_process_launches']}"
+                  + (f"; blocks made in {rec['datagen_seconds']:.1f} s" if "datagen_seconds" in rec else ""),
+                  flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t0
+    print(f"[multihost26] phase {phase_s:.1f} s", flush=True)
+    record["multihost26"] = dict(recs, phase_s=phase_s)
+    return {k: {name: [p[k] for p in rec["cold_launches"]] for name, rec in recs.items()} for k in mh.KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -2431,6 +2472,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     bench_counts = phase_bench(dev, record)
+    mh26_counts = phase_multihost26(record)
     for row, key, fn, kernel, label in _DEFERRED:
         # a second try where the profiler returned no kernel events
         row[key] = _device_ms(fn, kernel) or _device_ms(fn, kernel)
@@ -2455,8 +2497,9 @@ def main() -> int:
         # problems or lanes those launches took); launches_by_path adds the
         # large tier's flagship run, phase 7 (a)'s gethclust calls, the
         # flagship block over two shards, the bench's compute path,
-        # phase 10 (a)'s flagship run at group 4 and phase 10 (d)'s
-        # entry-point calls.
+        # phase 10 (a)'s flagship run at group 4, phase 10 (d)'s
+        # entry-point calls and phase 11's cold runs (by configuration, one
+        # count a process).
         # ms: one call through the wrapper (CUDA events); device_ms: the
         # kernel alone (torch.profiler), null where not measured. The round's
         # wrapper launches both of its kernels: rnn_round's ms is the whole
@@ -2471,7 +2514,7 @@ def main() -> int:
             "launches_by_path": {"large": large_counts[name], "unlimited": unl_counts[name],
                                  "analysis": analysis_counts[name], "parallel": par_counts[name],
                                  "bench": bench_counts[name], "surface": surface_counts[name],
-                                 "phase 10 (d)": jit_counts[name]},
+                                 "phase 10 (d)": jit_counts[name], "multihost26": mh26_counts[name]},
         }
 
     kernels = {

@@ -14,6 +14,7 @@ data.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 
@@ -67,3 +68,43 @@ def gen_block(path: str, bi: int, bn: int, G: int, keep: int, tm, top, n_top) ->
     csr = sp.csr_matrix((vals.ravel(), cols.ravel(), indptr), shape=(bn, G))
     write_sblk(path + ".tmp", csr, dtype_code=0)
     os.replace(path + ".tmp", path)
+
+
+def _available_bytes() -> int | None:
+    """The host memory that can be had without swapping (Linux's
+    MemAvailable), or None where it cannot be read."""
+    try:
+        with open("/proc/meminfo") as fh:
+            for line in fh:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def make_blocks(ddir: str, blocks, G: int, n_types: int, keep: int) -> float:
+    """Make the blocks the dataset directory `ddir` lacks, as
+    `ddir/block_<b>.sblk` (`blocks`: the cells of each block), in a pool of
+    spawned processes, one a core and a missing block, as many as the
+    host's free memory holds (a block peaks at about 32 bytes a nonzero);
+    returns the seconds it took."""
+    import concurrent.futures
+    import multiprocessing
+
+    os.makedirs(ddir, exist_ok=True)
+    missing = [bi for bi in range(len(blocks)) if not os.path.exists(os.path.join(ddir, f"block_{bi:05d}.sblk"))]
+    if not missing:
+        return 0.0
+    t0 = time.perf_counter()
+    tm, top, n_top = type_means(G, n_types, keep)
+    workers = min(os.cpu_count() or 1, len(missing))
+    avail = _available_bytes()
+    if avail is not None:
+        workers = max(1, min(workers, avail // (32 * keep * max(blocks[bi] for bi in missing))))
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [pool.submit(gen_block, os.path.join(ddir, f"block_{bi:05d}.sblk"), bi, blocks[bi], G, keep, tm, top,
+                            n_top) for bi in missing]
+        for job in jobs:
+            job.result()
+    return time.perf_counter() - t0

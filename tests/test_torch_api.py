@@ -82,9 +82,10 @@ def test_port_runs_without_importing_jax():
 
 
 def test_port_source_imports_nothing_of_the_jax_package():
-    """No module of the port, not chip_smoke.py and not bench_torch.py
-    names the JAX package or JAX in an import; matplotlib is imported only
-    inside the plot functions (the machine with the card has none)."""
+    """No module of the port, not chip_smoke.py, not bench_torch.py and not
+    the port's scripts name the JAX package or JAX in an import; matplotlib
+    is imported only inside the plot functions (the machine with the card
+    has none)."""
     import re
 
     pat = re.compile(
@@ -92,6 +93,8 @@ def test_port_source_imports_nothing_of_the_jax_package():
     )
     mpl = re.compile(r"^\s*(import|from) matplotlib\b", re.M)
     paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py")]
+    paths += [os.path.join(REPO, "scripts", f)
+              for f in ("multihost_26block_torch.py", "bench_round.py", "repro_log2_load.py")]
     for root, _, files in os.walk(os.path.join(REPO, "sharp_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     bad = [p for p in paths if pat.search(open(p).read())]
@@ -279,6 +282,20 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
         assert out.returncode != 0, script
         assert result not in out.stdout, script
         alone.unlink()
+
+
+def test_multihost_script_fails_without_a_card():
+    """scripts/multihost_26block_torch.py with --device cuda (its default)
+    and no card exits 1 and prints no record."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    for args in ([], ["--device", "cuda", "--config", "mechanics"]):
+        out = subprocess.run(
+            [sys.executable, os.path.join(REPO, "scripts", "multihost_26block_torch.py"), *args], cwd=REPO,
+            capture_output=True, text=True, timeout=120,
+        )
+        assert out.returncode == 1, (args, out.stderr[-2000:])
+        assert "{" not in out.stdout and "is_available() is False" in out.stderr, args
 
 
 def test_global_fuse_and_rp_matrix_default_to_the_card():

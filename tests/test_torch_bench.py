@@ -254,3 +254,26 @@ def test_compute_path_on_the_cpu(tmp_path, monkeypatch):
     assert rc == 2 and line["value"] == 0.0
     assert line["detail"]["error"] == "linkage parity pre-check FAILED on device"
     assert set(line["detail"]["problems"]) == {"rnn_f32", "rnn_bf16", "serial_f32"}
+
+
+def test_make_blocks_writes_what_gen_block_writes(tmp_path):
+    """`io.benchdata.make_blocks` makes the missing blocks in a pool of
+    spawned processes: each file holds the bytes `gen_block` writes in this
+    process, and only a missing block is made again."""
+    from sharp_tpu_torch.io import benchdata
+
+    blocks, G, n_types, keep = [40, 40, 56], 300, 4, 64
+    ddir = str(tmp_path / "pool")
+    assert benchdata.make_blocks(ddir, blocks, G, n_types, keep) > 0
+    tm, top, n_top = benchdata.type_means(G, n_types, keep)
+    path = lambda bi: os.path.join(ddir, f"block_{bi:05d}.sblk")  # noqa: E731
+    for bi, bn in enumerate(blocks):
+        one = str(tmp_path / f"one_{bi}.sblk")
+        benchdata.gen_block(one, bi, bn, G, keep, tm, top, n_top)
+        with open(one, "rb") as a, open(path(bi), "rb") as b:
+            assert a.read() == b.read()
+    assert benchdata.make_blocks(ddir, blocks, G, n_types, keep) == 0.0
+    kept = os.stat(path(0)).st_mtime_ns
+    os.remove(path(1))
+    assert benchdata.make_blocks(ddir, blocks, G, n_types, keep) > 0
+    assert os.path.exists(path(1)) and os.stat(path(0)).st_mtime_ns == kept
