@@ -204,6 +204,33 @@ Phases, in order; any failure raises and the script exits non-zero:
               0.80 with at most 57 clusters, and every kernel launched in
               each process's cold run. Prints the cold, resume and
               one-process walls, each worker's seconds and summary_gather.
+ 12. scripts  the six scripts/*_torch.py counterparts of the JAX side's
+              tuning and profiling programs, after phase 11, at the JAX
+              scripts' sizes through their functions and gates, each one's
+              launches counted: tune_linkage_rnn_torch (the ladder's grid of
+              pair_cap 128/256/512 x compact_n 256/512 x compact_cap 32/64
+              on (20, 2048) in bf16 storage: every lane's merges valid, both
+              compact_cap values identical; the replica's rounds per level
+              beside the port's), bench_linkage_backends_torch (the ladder
+              and serial Ward in f32 and bf16 at (5, 2048) and (5, 1024):
+              every sequence valid, serial f32's real merges the f32
+              ladder's up to the order of exactly tied heights),
+              profile_fold_torch (a group of 4 x 2,048 x 27,998 through the
+              fold program with "rnn" and "rnn_bf16"), profile_fuse_batched_
+              torch (sMetaC at NC_pad 1024 and 1536, G 1 and one call of G
+              8: each block of the batch equal to its fuse alone),
+              profile_fuse_torch (fuse_folds on 6 fake blocks of 25 folds:
+              cold = warm, smetac replayed = warm) and
+              debug_bench_quality_torch (6 folds of the 65,536-cell bench
+              configuration and their fuse; its DUMP keys). Then the kernel
+              shapes those grids reach, against the plain versions: every
+              round of the ladder over the grid's batch at pair_cap 256 and
+              512 (P 512 in f32 takes the scatter's 32-row strip), f32 and
+              bf16, the first round at 2048 timed with its bound
+              (`round_bytes`), the whole ladder with kernel rounds = plain
+              rounds; the tail at (20, 512), past the shared-memory tier
+              (every lane on the rows route); serial Ward at (1, 2048) on the
+              backends' data in f32 and bf16.
 
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it holds the card's name and power limit as nvidia-smi prints them,
@@ -212,8 +239,9 @@ in the run of phase 6 (b) and the problems they took (and, under
 launches_by_path, its launches in the flagship run
 of phase 5 (b), in phase 7 (a)'s gethclust calls, in phase 8 (b), the
 flagship block over two shards, in phase 9's whole run, in phase 10 (a),
-in phase 10 (d)'s entry-point calls and, by configuration and process, in
-phase 11's cold runs), its largest difference from the
+in phase 10 (d)'s entry-point calls, by configuration and process in
+phase 11's cold runs and by script in phase 12; and under wide_shapes its
+phase 12 shapes), its largest difference from the
 plain version, its time
 per call (and device_ms, the kernel alone), the plain version's, its bound
 and what bounds it. The ladder round's wrapper launches two kernels, each
@@ -575,13 +603,53 @@ def _small_tier_distance(dev, n_cells):
     return D.contiguous(), n_cells
 
 
+def _hold_tail(name, args):
+    """The tail kernel on the ladder's compacted subproblems `args`
+    (`RnnLadder.tail_inputs()`) against the plain tail: mi, mj, hh identical
+    for t < n_alive - 1; its time, the plain tail's, the bound and the lanes
+    by route (ROUTES). Returns the row and the plain tail's output."""
+    import torch
+
+    from sharp_tpu_torch.ops import linkage_cuda
+    from sharp_tpu_torch.ops.linkage import rnn_tail
+    from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
+
+    L, Cn = args[0].shape[:2]
+    got = rnn_tail_kernel(*args)
+    rows_route = int(linkage_cuda.ROUTES["rnn_tail"].sum())
+    ref = rnn_tail(*args)
+    torch.cuda.synchronize()
+    n_alive = args[1].sum(dim=1).long()
+    valid = torch.arange(Cn, device=n_alive.device)[None, :] < (n_alive - 1)[:, None]
+    for what, a, b in zip(("mi", "mj", "hh"), got, ref):
+        if not torch.equal(a[valid], b[valid]):
+            raise AssertionError(f"{name}: {what} differs from the plain tail")
+    # D read once, (mi, mj, hh) written once; the state vectors read once
+    bound, by = _bound(_nbytes(*args, *got))
+    row = dict(
+        shape=[L, Cn], n_alive_min=int(n_alive.min()), n_alive_max=int(n_alive.max()),
+        lanes_by_route={"triangle": L - rows_route, "rows": rows_route},
+        max_abs_err=float((got[2] - ref[2])[valid].abs().max()), bound_ms=bound, bound_by=by,
+        ms=_median_ms(lambda: rnn_tail_kernel(*args), KERNEL_REPS),
+        plain_ms=_median_ms(lambda: rnn_tail(*args), PLAIN_REPS),
+    )
+    print(
+        f"[kernels] {name} L={L} Cn={Cn} (n_alive {row['n_alive_min']}-{row['n_alive_max']}; lanes by route "
+        f"{row['lanes_by_route']}): mi, mj, hh identical to the plain tail; kernel {row['ms']:.3f} ms (plain "
+        f"{row['plain_ms']:.3f} ms, bound {bound * 1e3:.2f} us)",
+        flush=True,
+    )
+    _device_ms_later(row, "device_ms", lambda: rnn_tail_kernel(*args), "rnn_tail_kernel", f"{name} ({L}, {Cn})")
+    return row, ref
+
+
 def phase_kernels(dev, record, Xbig, ybig):
     import torch
 
     from sharp_tpu_torch.config import pad_dim, resolve_config
     from sharp_tpu_torch.ops import linkage_cuda
-    from sharp_tpu_torch.ops.linkage import rnn_tail, validate_merge_sequence, ward_linkage_rnn
-    from sharp_tpu_torch.ops.linkage_cuda import cutree_snapshots_kernel, rnn_tail_kernel
+    from sharp_tpu_torch.ops.linkage import validate_merge_sequence, ward_linkage_rnn
+    from sharp_tpu_torch.ops.linkage_cuda import cutree_snapshots_kernel
 
     rows = {}
     # --- small-tier shapes -------------------------------------------------
@@ -625,17 +693,7 @@ def phase_kernels(dev, record, Xbig, ybig):
         rounds_per_level[store_name] = per_level
         del first
         args = ladder.tail_inputs()
-        Cn = args[0].shape[-1]
-        got = rnn_tail_kernel(*args)
-        rows_route = int(linkage_cuda.ROUTES["rnn_tail"].sum())
-        ref = rnn_tail(*args)
-        torch.cuda.synchronize()
-        n_alive = args[1].sum(dim=1).long()
-        valid = torch.arange(Cn, device=dev)[None, :] < (n_alive - 1)[:, None]
-        for what, a, b in zip(("mi", "mj", "hh"), got, ref):
-            if not torch.equal(a[valid], b[valid]):
-                raise AssertionError(f"rnn_tail {store_name}: {what} differs from the plain tail")
-        err = float((got[2] - ref[2])[valid].abs().max())
+        tail[store_name], ref = _hold_tail(f"rnn_tail {store_name}", args)
         # the whole ladder: kernel rounds and kernel tail against the same
         # rounds finished by the plain tail, and against plain rounds
         link = ward_linkage_rnn(D, store_dtype=store, round_impl="pallas")
@@ -650,27 +708,9 @@ def phase_kernels(dev, record, Xbig, ybig):
             if errs:
                 raise AssertionError(f"ladder {store_name} lane {lane}: {errs}")
         links[store_name] = link
-        # D read once, (mi, mj, hh) written once; the state vectors read once
-        bound, by = _bound(_nbytes(*args, *got))
-        tail[store_name] = dict(
-            shape=[L, Cn], n_alive_min=int(n_alive.min()), n_alive_max=int(n_alive.max()),
-            lanes_by_route={"triangle": L - rows_route, "rows": rows_route},
-            max_abs_err=err, bound_ms=bound, bound_by=by,
-            ms=_median_ms(lambda: rnn_tail_kernel(*args), KERNEL_REPS),
-            plain_ms=_median_ms(lambda: rnn_tail(*args), PLAIN_REPS),
-        )
-        print(
-            f"[kernels] rnn_tail {store_name} L={L} Cn={Cn} (n_alive {tail[store_name]['n_alive_min']}-"
-            f"{tail[store_name]['n_alive_max']}; lanes by route {tail[store_name]['lanes_by_route']}): "
-            f"mi, mj, hh identical to the plain tail; the whole "
-            f"ladder identical with the plain tail and with plain rounds; kernel "
-            f"{tail[store_name]['ms']:.3f} ms (plain {tail[store_name]['plain_ms']:.3f} ms, bound "
-            f"{bound * 1e3:.2f} us); rounds per level {per_level}",
-            flush=True,
-        )
-        _device_ms_later(tail[store_name], "device_ms", lambda a=args: rnn_tail_kernel(*a),
-                         "rnn_tail_kernel", f"rnn_tail {store_name} ({L}, {Cn})")
-        del args, got, ref
+        print(f"[kernels] the whole ladder {store_name} identical with the plain tail and with plain rounds; "
+              f"rounds per level {per_level}", flush=True)
+        del args, ref
         # the whole ladder with plain rounds and with kernel rounds, in turns
         turns = {}
         for impl in ("xla", "pallas", "pallas", "xla"):
@@ -823,10 +863,11 @@ def _same_ladder(name, a, b):
         raise AssertionError(f"{name}: the row cache differs from the plain round")
 
 
-def _capture_rounds(D, store, keep=None):
-    """The ladder over D with kernel rounds, each round held against the
-    plain round `rnn_round` on a copy of the ladder: the whole state and the
-    row cache identical. Returns the ladder (compacted to its tail), copies
+def _capture_rounds(D, store, keep=None, pair_cap=128):
+    """The ladder over D with kernel rounds (up to pair_cap pairs a round),
+    each round held against the plain round `rnn_round` on a copy of the
+    ladder: the whole state and the row cache identical. Returns the ladder
+    (compacted to its tail), copies
     of the state (ladder, nxt, P) before the first round at each level size
     (and before round `keep` = (m, t), the t-th of level m, under that key),
     the rounds launched per level and the rounds held."""
@@ -851,7 +892,7 @@ def _capture_rounds(D, store, keep=None):
 
     linkage_cuda.rnn_round_kernel = spy
     try:
-        ladder = rnn_ladder(D, store_dtype=store, round_impl="pallas")
+        ladder = rnn_ladder(D, pair_cap, store, round_impl="pallas")
     finally:
         linkage_cuda.rnn_round_kernel = real
     return ladder, first, per_level, sum(per_level.values())
@@ -1613,14 +1654,14 @@ def phase_analysis(dev, record, Xbig, flagship):
 API_GENES, API_TYPES, API_KEEP, API_BLOCK, API_BLOCKS = 27998, 38, 2048, 50000, 4
 
 
-def _mh26():
-    """scripts/multihost_26block_torch.py as a module."""
+def _script(name):
+    """scripts/<name>.py as a module."""
+    import importlib
+
     path = os.path.join(HERE, "scripts")
     if path not in sys.path:
         sys.path.insert(0, path)
-    import multihost_26block_torch
-
-    return multihost_26block_torch
+    return importlib.import_module(name)
 
 
 def phase_unlimited(dev, record, tmp):
@@ -1648,7 +1689,7 @@ def phase_unlimited(dev, record, tmp):
     kw = dict(rN_seed=2103, resume=False)
     cfg = resolve_config(n, genes, rN_seed=2103)
     R = _ternary(np.random.default_rng(7500), genes, cfg.ensize_K * cfg.reduced_ndim)
-    real = _mh26().patched_rp(streaming, R)
+    real = _script("multihost_26block_torch").patched_rp(streaming, R)
     try:
         card, wall, counts, _, _ = _run_counted(small, entry="sharp_unlimited", device=dev, **kw)
         dense = sharp_tpu_torch.sharp_unlimited(small, device=dev, sparse_feed=False, **kw)
@@ -2398,7 +2439,7 @@ def phase_multihost26(record):
     process (each worker starts at 0)."""
     import torch
 
-    mh = _mh26()
+    mh = _script("multihost_26block_torch")
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="sharp_smoke_mh26_")
     recs = {}
@@ -2418,6 +2459,120 @@ def phase_multihost26(record):
     print(f"[multihost26] phase {phase_s:.1f} s", flush=True)
     record["multihost26"] = dict(recs, phase_s=phase_s)
     return {k: {name: [p[k] for p in rec["cold_launches"]] for name, rec in recs.items()} for k in mh.KERNELS}
+
+
+# --- the JAX side's tuning and profiling programs ---------------------------
+# each script and the kernels its run at the JAX script's size launches
+# ("rnn" and "rnn_bf16" take the fold program's wMetaC through the ladder's
+# tail, so profile_fold launches no serial Ward)
+SCRIPT_KERNELS = {
+    "tune_linkage_rnn_torch": ("rnn_round", "rnn_pairs", "rnn_tail"),
+    "bench_linkage_backends_torch": ("rnn_round", "rnn_tail", "ward_serial"),
+    "profile_fold_torch": ("rnn_round", "rnn_tail", "cutree"),
+    "profile_fuse_batched_torch": ("rnn_round", "rnn_tail", "ward_serial", "cutree"),
+    "profile_fuse_torch": ("ward_serial", "cutree"),
+    "debug_bench_quality_torch": ("rnn_round", "rnn_tail", "ward_serial", "cutree"),
+}
+# the ladder's pair caps above the default that the tuning grid reaches,
+# held round by round; its compact_n above 256, where the tail takes the
+# rows in global memory
+WIDE_PAIR_CAPS = (256, 512)
+WIDE_COMPACT_N = 512
+
+
+def _wide_shapes(dev, D):
+    """The kernel shapes the tuning grid reaches on its batch D (20, 2048):
+    every round of the ladder at pair_cap 256 and 512, f32 and bf16, held
+    against the plain round (and the first round at 2048 timed, its bound
+    from `round_bytes`), the whole ladder's merges and heights identical
+    with kernel rounds and with plain rounds; the tail at (20, 512) (the
+    global tier) against the plain tail."""
+    import torch
+
+    from sharp_tpu_torch.ops.linkage import rnn_ladder, ward_linkage_rnn
+
+    rounds, tails = {}, {}
+    for store_name, store in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for pc in WIDE_PAIR_CAPS:
+            _, first, per_level, held = _capture_rounds(D, store, pair_cap=pc)
+            print(f"[scripts] rnn_round {store_name} pair_cap={pc}: {held} rounds of the ladder {tuple(D.shape[:2])} "
+                  f"each identical to the plain round; rounds per level {per_level}", flush=True)
+            m = max(first)
+            rounds[f"{store_name} P={first[m][2]}"] = _hold_round(
+                f"rnn_round {store_name} m={m} pair_cap={pc} first round", first[m])
+            del first
+            kernel = ward_linkage_rnn(D, pair_cap=pc, store_dtype=store, round_impl="pallas")
+            plain = ward_linkage_rnn(D, pair_cap=pc, store_dtype=store, round_impl="xla")
+            if not (torch.equal(kernel.merges, plain.merges) and torch.equal(kernel.heights, plain.heights)):
+                raise AssertionError(f"ladder {store_name} pair_cap={pc}: kernel rounds and plain rounds disagree")
+            del kernel, plain
+        ladder = rnn_ladder(D, 128, store, WIDE_COMPACT_N)
+        tails[store_name], _ = _hold_tail(f"rnn_tail {store_name} compact_n={WIDE_COMPACT_N}", ladder.tail_inputs())
+        if tails[store_name]["lanes_by_route"]["rows"] != D.shape[0]:
+            raise AssertionError(f"rnn_tail at Cn {WIDE_COMPACT_N}: lanes by route "
+                                 f"{tails[store_name]['lanes_by_route']}")
+        del ladder
+        torch.cuda.empty_cache()
+    return rounds, tails
+
+
+def phase_scripts(dev, record):
+    """Phase 12, after phase 11: the six scripts/*_torch.py counterparts of
+    the JAX side's tuning and profiling programs, at the JAX scripts' sizes,
+    through their functions and gates, each one's launches counted; then
+    the kernel shapes their grids reach, against the plain versions (serial
+    Ward at (1, 2048) on the backends' data, the ladder's wide pair caps and
+    the tail's global tier on the tuning grid's batch). Returns the
+    launches by script."""
+    import torch
+
+    from sharp_tpu_torch.ops import linkage_cuda
+    from sharp_tpu_torch.ops.distance import pearson_distance
+
+    t0 = time.perf_counter()
+    mods = {name: _script(name) for name in SCRIPT_KERNELS}
+    out, launches, shapes = {}, {}, {}
+
+    def counted(name, *args, **kw):
+        torch.cuda.empty_cache()
+        before = dict(linkage_cuda.LAUNCHES)
+        t = time.perf_counter()
+        res = mods[name].run(dev, *args, **kw)
+        torch.cuda.synchronize()
+        launches[name] = {k: n - before[k] for k, n in linkage_cuda.LAUNCHES.items()}
+        out[name] = res[0] if isinstance(res, tuple) else res
+        for line in mods[name].lines(out[name]):
+            print(f"[scripts] {name}: {line}", flush=True)
+        print(f"[scripts] {name}: {time.perf_counter() - t:.1f} s, launches {launches[name]}", flush=True)
+        return res
+
+    _, D = counted("tune_linkage_rnn_torch")
+    shapes["rnn_round"], shapes["rnn_tail"] = _wide_shapes(dev, D)
+    del D
+    counted("bench_linkage_backends_torch")
+    blb = mods["bench_linkage_backends_torch"]
+    X, mask = blb.make_points(np.random.default_rng(blb.SEED), 2048, 2000)
+    D1 = pearson_distance(torch.from_numpy(X[:1]).to(dev), torch.from_numpy(mask).to(dev)).contiguous()
+    shapes["ward_serial"] = {st: _hold_ward("ward_1x2048_backends", D1, 2000, st)[0] for st in ("f32", "bf16")}
+    del D1, X
+    counted("profile_fold_torch", group=4)
+    counted("profile_fuse_batched_torch")
+    counted("profile_fuse_torch")
+    counted("debug_bench_quality_torch", nfold=6)
+    with tempfile.TemporaryDirectory(prefix="sharp_smoke_dump_") as tmp:
+        path = os.path.join(tmp, "fuse_debug.npz")
+        mods["debug_bench_quality_torch"].dump_cents(path, dev, nfold=2)
+        keys = sorted(np.load(path).keys())
+    if keys != ["cent_sum", "counts", "finalC", "sizes", "truth"]:
+        raise AssertionError(f"debug_bench_quality_torch: DUMP wrote {keys}")
+    for name, need in SCRIPT_KERNELS.items():
+        missing = [k for k in need if launches[name][k] < 1]
+        if missing:
+            raise AssertionError(f"{name}: {missing} not launched ({launches[name]})")
+    phase_s = time.perf_counter() - t0
+    print(f"[scripts] phase {phase_s:.1f} s", flush=True)
+    record["scripts"] = dict(out, launches=launches, shapes=shapes, phase_s=phase_s)
+    return launches, shapes
 
 
 def main() -> int:
@@ -2473,6 +2628,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     bench_counts = phase_bench(dev, record)
     mh26_counts = phase_multihost26(record)
+    script_counts, wide = phase_scripts(dev, record)
     for row, key, fn, kernel, label in _DEFERRED:
         # a second try where the profiler returned no kernel events
         row[key] = _device_ms(fn, kernel) or _device_ms(fn, kernel)
@@ -2486,20 +2642,31 @@ def main() -> int:
     # serial Ward at the shape the main path gives it most: a fold group's
     # wMetaC meta problems in one launch
     ward, cut = rows[f"ward_wmetac_{GROUP}x256"]["f32"], rows["cutree_80x2048"]
-    # every serial Ward shape, both storage types
-    ward_err = max(r[st]["max_abs_err"] for r in rows.values() for st in ("f32", "bf16") if st in r)
+    # every serial Ward shape, both storage types, phase 12's too
+    ward_err = max(r[st]["max_abs_err"] for r in (*rows.values(), wide["ward_serial"])
+                   for st in ("f32", "bf16") if st in r)
     # the round at the main path's largest level: its first round at 2048
     r32 = rounds["f32"][2048]
-    round_err = max(r["max_abs_err"] for st in rounds.values() for r in st.values())
+    round_err = max(r["max_abs_err"] for r in (*(r for st in rounds.values() for r in st.values()),
+                                                  *wide["rnn_round"].values()))
+    tail_err = max(r["max_abs_err"] for r in (*tail.values(), *wide["rnn_tail"].values()))
 
-    def entry(name, replaces, err, ms, plain_ms, bound_ms, bound_by, device_ms=None, source=None):
+    def wide_rows(kernel, ms_key="ms", device_key="device_ms", bound_key="bound_ms"):
+        # phase 12's shapes of the kernel: ms a call, the kernel alone, the
+        # plain version, the bound
+        return {label: {"ms": r[ms_key], "device_ms": r.get(device_key), "plain_ms": r["plain_ms"],
+                        "bound_ms": r[bound_key], "shape": r.get("shape")}
+                for label, r in wide[kernel].items()}
+
+    def entry(name, replaces, err, ms, plain_ms, bound_ms, bound_by, device_ms=None, source=None, wide_shapes=None):
         # launches: sharp_unlimited over the 4 flagship blocks (problems: the
         # problems or lanes those launches took); launches_by_path adds the
         # large tier's flagship run, phase 7 (a)'s gethclust calls, the
         # flagship block over two shards, the bench's compute path,
         # phase 10 (a)'s flagship run at group 4, phase 10 (d)'s
-        # entry-point calls and phase 11's cold runs (by configuration, one
-        # count a process).
+        # entry-point calls, phase 11's cold runs (by configuration, one
+        # count a process) and phase 12's scripts (by script); wide_shapes:
+        # phase 12's new shapes of the kernel.
         # ms: one call through the wrapper (CUDA events); device_ms: the
         # kernel alone (torch.profiler), null where not measured. The round's
         # wrapper launches both of its kernels: rnn_round's ms is the whole
@@ -2514,22 +2681,26 @@ def main() -> int:
             "launches_by_path": {"large": large_counts[name], "unlimited": unl_counts[name],
                                  "analysis": analysis_counts[name], "parallel": par_counts[name],
                                  "bench": bench_counts[name], "surface": surface_counts[name],
-                                 "phase 10 (d)": jit_counts[name], "multihost26": mh26_counts[name]},
+                                 "phase 10 (d)": jit_counts[name], "multihost26": mh26_counts[name],
+                                 "scripts": {k: c[name] for k, c in script_counts.items()}},
+            "wide_shapes": wide_shapes,
         }
 
     kernels = {
         "kernels": [
             entry("rnn_round", "sharp_tpu/ops/linkage_pallas.py:854", round_err,
-                  r32["ms"], r32["plain_ms"], r32["bound_ms"], r32["bound_by"], r32["device_ms"]),
+                  r32["ms"], r32["plain_ms"], r32["bound_ms"], r32["bound_by"], r32["device_ms"],
+                  wide_shapes=wide_rows("rnn_round")),
             entry("rnn_pairs", "sharp_tpu/ops/linkage_pallas.py:854", round_err,
                   r32["pairs_device_ms"], r32["plain_ms"], r32["pairs_bound_ms"], "bytes",
-                  r32["pairs_device_ms"], source="rnn_round"),
-            entry("rnn_tail", "sharp_tpu/ops/linkage_pallas.py:659",
-                  max(tail["f32"]["max_abs_err"], tail["bf16"]["max_abs_err"]),
+                  r32["pairs_device_ms"], source="rnn_round",
+                  wide_shapes=wide_rows("rnn_round", "pairs_device_ms", "pairs_device_ms", "pairs_bound_ms")),
+            entry("rnn_tail", "sharp_tpu/ops/linkage_pallas.py:659", tail_err,
                   tail["f32"]["ms"], tail["f32"]["plain_ms"], tail["f32"]["bound_ms"], tail["f32"]["bound_by"],
-                  tail["f32"]["device_ms"]),
+                  tail["f32"]["device_ms"], wide_shapes=wide_rows("rnn_tail")),
             entry("ward_serial", "sharp_tpu/ops/linkage_pallas.py:993", ward_err,
-                  ward["ms"], ward["plain_ms"], ward["bound_ms"], ward["bound_by"], ward["device_ms"]),
+                  ward["ms"], ward["plain_ms"], ward["bound_ms"], ward["bound_by"], ward["device_ms"],
+                  wide_shapes=wide_rows("ward_serial")),
             entry("cutree", "sharp_tpu/ops/linkage_pallas.py:953", cut["cutree_max_abs_err"],
                   cut["cutree_ms"], cut["cutree_plain_ms"], cut["cutree_bound_ms"], cut["cutree_bound_by"],
                   cut["cutree_device_ms"]),

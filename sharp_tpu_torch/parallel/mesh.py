@@ -48,12 +48,17 @@ def make_mesh(
     n_ens: int = 1,
     devices: Optional[Sequence] = None,
 ) -> Mesh:
-    """An ("data", "ens") mesh over `devices` (default: every CUDA card, or
-    the CPU once when there is none), data-major, with the JAX function's
-    checks."""
+    """An ("data", "ens") mesh over `devices` (default: every CUDA card),
+    data-major, with the JAX function's checks. With no `devices` and no
+    card it raises, as a CUDA request does (`api.resolve_device`): a mesh
+    on the CPU names its devices."""
     if devices is None:
-        n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        devices = [torch.device("cuda", i) for i in range(n_cards)] or [torch.device("cpu")]
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_mesh() takes every CUDA card, but torch.cuda.is_available() is False; "
+                "pass devices=[torch.device('cpu'), ...] for a mesh on the CPU"
+            )
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = list(devices)
     nd = len(devices)
     if n_data is None:

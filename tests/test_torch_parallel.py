@@ -52,6 +52,17 @@ def _same(a, b, keys=("pred_clusters", "per_member_k", "folds")):
     assert a.N_pred_cluster == b.N_pred_cluster
 
 
+def test_make_mesh_without_devices_raises_without_a_card(monkeypatch):
+    """make_mesh() takes every CUDA card; with none it raises, as a CUDA
+    request does, and builds no mesh on the CPU behind the caller's back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="is_available"):
+        mesh.make_mesh(n_data=1)
+    assert mesh.make_mesh(devices=["cpu"]).flat() == [torch.device("cpu")]
+
+
 def test_mesh_shapes_and_ensemble_axis_rejection(monkeypatch):
     m = mesh.make_mesh(n_data=4, n_ens=2, devices=CPU8)
     assert m.shape == {"data": 4, "ens": 2}
