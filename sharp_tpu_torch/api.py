@@ -35,7 +35,7 @@ from sharp_tpu_torch.core.pipeline import TestlogProbe, preprocess, sharp_small
 from sharp_tpu_torch.ops.linkage import resolve_linkage_backend
 from sharp_tpu_torch.parallel.streaming import sharp_unlimited  # re-exported
 from sharp_tpu_torch.utils.prng import resolve_seed
-from sharp_tpu_torch.utils.timers import StageTimer
+from sharp_tpu_torch.utils.timers import StageTimer, span
 
 
 def resolve_device(device) -> torch.device:
@@ -85,49 +85,50 @@ def sharp(
     Callers injecting rM usually also pass prep=False so the gene dimension
     is not altered under the matrices.
     """
-    dev = resolve_device(device)
-    X = np.asarray(X)
-    if X.ndim != 2:
-        raise ValueError("X must be 2-D (cells x genes)")
-    if cells_axis == 1:
-        X = X.T
+    with span("api"):
+        dev = resolve_device(device)
+        X = np.asarray(X)
+        if X.ndim != 2:
+            raise ValueError("X must be 2-D (cells x genes)")
+        if cells_axis == 1:
+            X = X.T
 
-    timer = StageTimer()
-    n, g = X.shape
-    cfg = resolve_config(n, g, **knobs)
-    n_pad = pad_dim(n) if cfg.is_small else cfg.block_pad
-    resolve_linkage_backend(cfg.linkage_backend, n_pad, cfg.hmethod)
-    rN_seed = resolve_seed(cfg.rN_seed)
+        n, g = X.shape
+        cfg = resolve_config(n, g, **knobs)
+        timer = StageTimer("small" if cfg.is_small else "large")
+        n_pad = pad_dim(n) if cfg.is_small else cfg.block_pad
+        resolve_linkage_backend(cfg.linkage_backend, n_pad, cfg.hmethod)
+        rN_seed = resolve_seed(cfg.rN_seed)
 
-    with timer.stage("preprocess"):
-        X = preprocess(X, cfg, gene_names=gene_names, cell_names=cell_names)
-        cfg = cfg.replace(n_genes=X.shape[1])
+        with timer.stage("preprocess"):
+            X = preprocess(X, cfg, gene_names=gene_names, cell_names=cell_names)
+            cfg = cfg.replace(n_genes=X.shape[1])
 
-    R_all = None
-    if rM is not None:
-        def as_tensor(m):
-            return m if isinstance(m, torch.Tensor) else torch.from_numpy(np.array(m))
+        R_all = None
+        if rM is not None:
+            def as_tensor(m):
+                return m if isinstance(m, torch.Tensor) else torch.from_numpy(np.array(m))
 
-        if isinstance(rM, (list, tuple)):
-            R_all = torch.cat([as_tensor(m) for m in rM], dim=1)
-        else:
-            R_all = as_tensor(rM)
-        want = (X.shape[1], cfg.ensize_K * cfg.reduced_ndim)
-        if tuple(R_all.shape) != want:
-            raise ValueError(
-                f"rM has shape {tuple(R_all.shape)}, expected {want} "
-                "(genes x ensize_K * reduced_ndim, after preprocessing "
-                "— pass prep=False to keep the gene dimension fixed)"
+            if isinstance(rM, (list, tuple)):
+                R_all = torch.cat([as_tensor(m) for m in rM], dim=1)
+            else:
+                R_all = as_tensor(rM)
+            want = (X.shape[1], cfg.ensize_K * cfg.reduced_ndim)
+            if tuple(R_all.shape) != want:
+                raise ValueError(
+                    f"rM has shape {tuple(R_all.shape)}, expected {want} "
+                    "(genes x ensize_K * reduced_ndim, after preprocessing "
+                    "— pass prep=False to keep the gene dimension fixed)"
+                )
+
+        if cfg.is_small:
+            return sharp_small(
+                X, cfg, rN_seed, dev, timer, R_all=R_all, testlog_probe=testlog_probe
             )
-
-    if cfg.is_small:
-        return sharp_small(
-            X, cfg, rN_seed, dev, timer, R_all=R_all, testlog_probe=testlog_probe
+        return sharp_large(
+            X, cfg, rN_seed, dev, timer, R_all=R_all, testlog_probe=testlog_probe,
+            shuffle_perm=shuffle_perm,
         )
-    return sharp_large(
-        X, cfg, rN_seed, dev, timer, R_all=R_all, testlog_probe=testlog_probe,
-        shuffle_perm=shuffle_perm,
-    )
 
 
 def run_mtimes(

@@ -22,6 +22,7 @@ from sharp_tpu_torch.ops.linkage import counts_per_problem, resolve_linkage_back
 from sharp_tpu_torch.ops.linkage_cuda import cutree_multi_kernel
 from sharp_tpu_torch.ops.rp import log2p1, rp_project_ensemble
 from sharp_tpu_torch.ops.select import linkage, prep_distance, select_cut
+from sharp_tpu_torch.utils.timers import sub
 
 
 class BlockEnsembleResult(NamedTuple):
@@ -60,8 +61,10 @@ def cluster_block_ensemble(
     G, n_pad, genes = Xf.shape
     maxN = int(maxN)
 
-    Xt = log2p1(Xf) if log_transform else Xf
-    proj = rp_project_ensemble(Xt.reshape(G * n_pad, genes), R_all, K=K)   # (K, G*n_pad, p)
+    with sub("rp"):
+        Xt = log2p1(Xf) if log_transform else Xf
+        # through the module's global, which a caller may wrap
+        proj = rp_project_ensemble(Xt.reshape(G * n_pad, genes), R_all, K=K)   # (K, G*n_pad, p)
     p = proj.shape[-1]
     proj = proj.reshape(K, G, n_pad, p).transpose(0, 1)                     # (G, K, n_pad, p)
     proj = proj * masks[:, None, :, None].to(proj.dtype)
@@ -69,18 +72,22 @@ def cluster_block_ensemble(
     lane_nreal = nreal.repeat_interleave(K)
 
     backend = resolve_linkage_backend(linkage_backend, n_pad, hmethod)
-    D, D_real, feats_unit = prep_distance(proj.reshape(G * K, n_pad, p), lane_mask, symmetric=False)
-    link = linkage(D.contiguous(), backend, hmethod)           # one call for all lanes
+    with sub("distance"):
+        D, D_real, feats_unit = prep_distance(proj.reshape(G * K, n_pad, p), lane_mask, symmetric=False)
+    with sub("linkage"):
+        link = linkage(D.contiguous(), backend, hmethod)       # one call for all lanes
     del D
-    cuts = cutree_multi_kernel(                                # one launch for all lanes
-        link.merges, lane_nreal, lane_mask, maxN, minN=minN, ncand=ncand, nc_pad=nc_pad
-    )
+    with sub("cutree"):
+        cuts = cutree_multi_kernel(                            # one launch for all lanes
+            link.merges, lane_nreal, lane_mask, maxN, minN=minN, ncand=ncand, nc_pad=nc_pad
+        )
 
-    res = select_cut(                                          # one selection for all lanes
-        D_real, feats_unit, link, cuts, lane_mask, lane_nreal, maxN,
-        minN=minN, ncand=ncand, nc_pad=nc_pad, sil_thre=sil_thre,
-        height_Ntimes=height_Ntimes, N_cluster=indN_cluster, height_tail=height_tail,
-    )
+    with sub("select"):
+        res = select_cut(                                      # one selection for all lanes
+            D_real, feats_unit, link, cuts, lane_mask, lane_nreal, maxN,
+            minN=minN, ncand=ncand, nc_pad=nc_pad, sil_thre=sil_thre,
+            height_Ntimes=height_Ntimes, N_cluster=indN_cluster, height_tail=height_tail,
+        )
     out = BlockEnsembleResult(
         labels=res.labels.reshape(G, K, n_pad).transpose(1, 2),
         k_per=res.k.reshape(G, K),

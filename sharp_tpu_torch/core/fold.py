@@ -20,6 +20,7 @@ from sharp_tpu_torch.config import SharpConfig
 from sharp_tpu_torch.core.block import BlockEnsembleResult, cluster_block_ensemble
 from sharp_tpu_torch.core.wmetac import wmetac
 from sharp_tpu_torch.ops.linkage import counts_per_problem
+from sharp_tpu_torch.utils.timers import span, sub
 
 
 class FoldSummary(NamedTuple):
@@ -83,19 +84,20 @@ def fold_program(
     folded = X.dim() == 3
     Xf = X if folded else X[None]
     masks = mask if folded else mask[None]
-    # the real counts go to the device once, before any work is queued
-    nreal = counts_per_problem(n_real if folded else [n_real], Xf.shape[0], Xf.device)
-    blk = cluster_block_ensemble(
-        Xf, masks, nreal, R_all, maxN, log_transform,
-        K=K, minN=minN, ncand=ncand, nc_pad=nc_pad,
-        sil_thre=sil_thre, height_Ntimes=height_Ntimes,
-        indN_cluster=indN_cluster if has_indN else None, linkage_backend=linkage_backend,
-        hmethod=hmethod,
-    )
-    out = fold_summary(
-        blk, masks, nreal, K=K, minN=minN, ncand=ncand, nc_pad=nc_pad, allc_pad=allc_pad,
-        height_Ntimes=height_Ntimes, maxN=maxN, linkage_backend=linkage_backend, hmethod=hmethod,
-    )
+    with span("fold"):
+        # the real counts go to the device once, before any work is queued
+        nreal = counts_per_problem(n_real if folded else [n_real], Xf.shape[0], Xf.device)
+        blk = cluster_block_ensemble(
+            Xf, masks, nreal, R_all, maxN, log_transform,
+            K=K, minN=minN, ncand=ncand, nc_pad=nc_pad,
+            sil_thre=sil_thre, height_Ntimes=height_Ntimes,
+            indN_cluster=indN_cluster if has_indN else None, linkage_backend=linkage_backend,
+            hmethod=hmethod,
+        )
+        out = fold_summary(
+            blk, masks, nreal, K=K, minN=minN, ncand=ncand, nc_pad=nc_pad, allc_pad=allc_pad,
+            height_Ntimes=height_Ntimes, maxN=maxN, linkage_backend=linkage_backend, hmethod=hmethod,
+        )
     return out if folded else FoldSummary(*(x[0] for x in out))
 
 
@@ -117,13 +119,14 @@ def fold_summary(
     """wMetaC of a group's G folds in one call, and the fold summaries
     (batched over the group). The mesh's ensemble split
     (`parallel/sharded.py`) gathers its shards' members into `blk` first."""
-    wres = wmetac(
-        blk.labels, masks, nreal, maxN,
-        K=K, nc_pad=nc_pad, allc_pad=allc_pad,
-        meta_minN=minN, meta_ncand=ncand,
-        sil_thre=0.0, height_Ntimes=height_Ntimes,
-        hmethod=hmethod, linkage_backend=linkage_backend,
-    )
+    with sub("wmetac"):
+        wres = wmetac(
+            blk.labels, masks, nreal, maxN,
+            K=K, nc_pad=nc_pad, allc_pad=allc_pad,
+            meta_minN=minN, meta_ncand=ncand,
+            sil_thre=0.0, height_Ntimes=height_Ntimes,
+            hmethod=hmethod, linkage_backend=linkage_backend,
+        )
     oh = F.one_hot(wres.finalC.long(), nc_pad).to(torch.float32)
     oh = oh * masks[..., None].to(torch.float32)
     return FoldSummary(

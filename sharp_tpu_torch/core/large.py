@@ -32,7 +32,7 @@ from sharp_tpu_torch.core.pipeline import TestlogProbe, resolve_log_transform
 from sharp_tpu_torch.core.smetac import smetac, smetac_range
 from sharp_tpu_torch.ops.rp import ensemble_rp_matrix
 from sharp_tpu_torch.utils.prng import shuffle_generator
-from sharp_tpu_torch.utils.timers import StageTimer, log
+from sharp_tpu_torch.utils.timers import StageTimer, host_read, log, span, sub
 
 
 def fold_sizes(n: int, partition_ncells: int) -> List[int]:
@@ -54,7 +54,7 @@ def fold_sizes(n: int, partition_ncells: int) -> List[int]:
 
 
 def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return np.asarray(host_read(x, "large.summaries") if isinstance(x, torch.Tensor) else x)
 
 
 def summary_to_host(s, n_fold: int, forview: bool = True) -> dict:
@@ -85,11 +85,12 @@ def summaries_to_host(out, sizes, forview: bool) -> List[dict]:
     """A batched FoldSummary (leading fold axis) -> per-fold host dicts,
     one copy to the host per field."""
     names = _SUMMARY_FIELDS + (("mean_proj", "x0") if forview else ())
-    host = {k: _host(getattr(out, k)) for k in names}
-    return [
-        summary_to_host(SimpleNamespace(**{k: v[gi] for k, v in host.items()}), int(sz), forview)
-        for gi, sz in enumerate(sizes)
-    ]
+    with span("summaries_to_host"):
+        host = {k: _host(getattr(out, k)) for k in names}
+        return [
+            summary_to_host(SimpleNamespace(**{k: v[gi] for k, v in host.items()}), int(sz), forview)
+            for gi, sz in enumerate(sizes)
+        ]
 
 
 def process_fold(
@@ -277,36 +278,41 @@ def fuse_blocks(
     `sharp_tpu/core/large.py:328-418`), at most `group` blocks a call: one
     serial Ward launch and one cut replay a call. A block of one fold is
     its own fuse (`_single_fold_result`)."""
-    results: List[Optional[FuseResult]] = [None] * len(blocks_fold_results)
-    preps: List[Optional[_PreparedBlock]] = [None] * len(blocks_fold_results)
-    by_shape = {}
-    for bi, frs in enumerate(blocks_fold_results):
-        _warn_overflow(frs)
-        if len(frs) == 1:
-            results[bi] = _single_fold_result(frs[0])
-            continue
-        prep = preps[bi] = _prepare_block(frs, cfg)
-        by_shape.setdefault((prep.NC_pad, prep.minN, prep.ncand, prep.meta_nc_pad), []).append(bi)
-    chunks = [(key, idxs[g0 : g0 + group]) for key, idxs in by_shape.items() for g0 in range(0, len(idxs), group)]
-    for (NC_pad, minN, ncand, meta_nc_pad), idxs in chunks:
-        bucket = [preps[bi] for bi in idxs]
-        cents = np.zeros((len(bucket), NC_pad, bucket[0].cents.shape[1]), np.float32)
-        for b, pr in enumerate(bucket):
-            cents[b, : pr.NC] = pr.cents
-        NCs = np.asarray([pr.NC for pr in bucket], np.int32)
-        valid = np.arange(NC_pad)[None, :] < NCs[:, None]
-        sres = smetac(
-            torch.from_numpy(cents).to(device), torch.from_numpy(valid).to(device), NCs,
-            [pr.maxN for pr in bucket],
-            minN=minN, ncand=ncand, meta_nc_pad=meta_nc_pad,
-            sil_thre=cfg.sil_thre, height_Ntimes=cfg.height_Ntimes,
-            finalN_cluster=finalN_cluster,
-            hmethod=cfg.hmethod, linkage_backend=cfg.linkage_backend,
-        )
-        tfs, n_finals = sres.tf.cpu().numpy(), sres.n_final.cpu().numpy()
-        for b, bi in enumerate(idxs):
-            results[bi] = _finish_block(blocks_fold_results[bi], cfg, preps[bi], tfs[b], int(n_finals[b]))
-    return results
+    with span("fuse_blocks"):
+        results: List[Optional[FuseResult]] = [None] * len(blocks_fold_results)
+        preps: List[Optional[_PreparedBlock]] = [None] * len(blocks_fold_results)
+        by_shape = {}
+        with sub("prepare"):
+            for bi, frs in enumerate(blocks_fold_results):
+                _warn_overflow(frs)
+                if len(frs) == 1:
+                    results[bi] = _single_fold_result(frs[0])
+                    continue
+                prep = preps[bi] = _prepare_block(frs, cfg)
+                by_shape.setdefault((prep.NC_pad, prep.minN, prep.ncand, prep.meta_nc_pad), []).append(bi)
+        chunks = [(key, idxs[g0 : g0 + group]) for key, idxs in by_shape.items() for g0 in range(0, len(idxs), group)]
+        for (NC_pad, minN, ncand, meta_nc_pad), idxs in chunks:
+            with sub("smetac"):
+                bucket = [preps[bi] for bi in idxs]
+                cents = np.zeros((len(bucket), NC_pad, bucket[0].cents.shape[1]), np.float32)
+                for b, pr in enumerate(bucket):
+                    cents[b, : pr.NC] = pr.cents
+                NCs = np.asarray([pr.NC for pr in bucket], np.int32)
+                valid = np.arange(NC_pad)[None, :] < NCs[:, None]
+                sres = smetac(
+                    torch.from_numpy(cents).to(device), torch.from_numpy(valid).to(device), NCs,
+                    [pr.maxN for pr in bucket],
+                    minN=minN, ncand=ncand, meta_nc_pad=meta_nc_pad,
+                    sil_thre=cfg.sil_thre, height_Ntimes=cfg.height_Ntimes,
+                    finalN_cluster=finalN_cluster,
+                    hmethod=cfg.hmethod, linkage_backend=cfg.linkage_backend,
+                )
+                tfs = host_read(sres.tf, "large.fuse_tf").numpy()
+                n_finals = host_read(sres.n_final, "large.fuse_n_final").numpy()
+            with sub("finish"):
+                for b, bi in enumerate(idxs):
+                    results[bi] = _finish_block(blocks_fold_results[bi], cfg, preps[bi], tfs[b], int(n_finals[b]))
+        return results
 
 
 def sharp_large(
@@ -329,7 +335,7 @@ def sharp_large(
     from sharp_tpu_torch.parallel.mesh import resolve_mesh
     from sharp_tpu_torch.parallel.sharded import process_folds
 
-    timer = timer or StageTimer()
+    timer = timer or StageTimer("large")
     n, genes = X.shape
     dev = torch.device(device)
 
@@ -345,7 +351,7 @@ def sharp_large(
                 raise ValueError(f"shuffle_perm has shape {perm.shape}, expected ({n},)")
         elif n < 1e5:
             gen = shuffle_generator(rN_seed, dev)
-            perm = torch.randperm(n, generator=gen, device=dev).cpu().numpy()
+            perm = host_read(torch.randperm(n, generator=gen, device=dev), "large.perm").numpy()
         else:
             perm = np.arange(n)
         sizes = fold_sizes(n, cfg.partition_ncells)

@@ -21,7 +21,7 @@ from sharp_tpu_torch.core.wmetac import wmetac
 from sharp_tpu_torch.ops.rp import ensemble_rp_matrix, rp_project, ternary_rp_matrix
 from sharp_tpu_torch.ops.select import opt_hclust
 from sharp_tpu_torch.utils.prng import fixed_generator, testlog_generator
-from sharp_tpu_torch.utils.timers import StageTimer, log
+from sharp_tpu_torch.utils.timers import StageTimer, host_read, log
 
 
 class TestlogProbe(NamedTuple):
@@ -108,7 +108,7 @@ def testlog_decide(
             Z, mask, sn, 40, symmetric=False, minN=2, ncand=39,
             nc_pad=cfg.nc_pad, sil_thre=0.0, height_Ntimes=2.0,
         )
-        return float(res.maxsil)
+        return host_read(res.maxsil, "pipeline.testlog_maxsil")
 
     raw = maxsil_of(rp_project(Xp, R))
     logged = maxsil_of(rp_project(Xp, R, log_transform=True))
@@ -146,7 +146,7 @@ def sharp_small(
     R/SHARP.R:541-549) and `testlog_probe` the testlog draws; by default
     both are drawn from `rN_seed` on `device`.
     """
-    timer = timer or StageTimer()
+    timer = timer or StageTimer("small")
     n, genes = X.shape
     K = cfg.ensize_K
     p = cfg.reduced_ndim
@@ -178,7 +178,7 @@ def sharp_small(
             linkage_backend=cfg.linkage_backend,
             hmethod=cfg.hmethod,
         )
-        k_per = block.k_per.cpu().numpy()
+        k_per = host_read(block.k_per, "pipeline.k_per").numpy()
 
     with timer.stage("wmetac"):
         wres = wmetac(
@@ -190,14 +190,14 @@ def sharp_small(
             height_Ntimes=cfg.height_Ntimes,
             enN_cluster=cfg.N_cluster,
         )
-        raw = wres.finalC.cpu().numpy()[:n]
+        raw = host_read(wres.finalC, "pipeline.finalC").numpy()[:n]
 
     with timer.stage("finalize"):
         merge_tiny = cfg.N_cluster is None and n > 1e4
         labels = finalize_labels(raw, merge_tiny=merge_tiny)
         vals, counts = np.unique(labels, return_counts=True)
-        viE = block.mean_proj[:n].cpu().numpy() if cfg.forview else None
-        x0 = wres.x0[:n].cpu().numpy() if cfg.forview else None
+        viE = host_read(block.mean_proj[:n], "pipeline.viE").numpy() if cfg.forview else None
+        x0 = host_read(wres.x0[:n], "pipeline.x0").numpy() if cfg.forview else None
 
     return SharpResult(
         pred_clusters=labels,
@@ -209,5 +209,5 @@ def sharp_small(
         paras=cfg.as_dict(),
         timing=timer.as_dict(),
         per_member_k=k_per,
-        per_member_maxsil=block.maxsil.cpu().numpy(),
+        per_member_maxsil=host_read(block.maxsil, "pipeline.maxsil").numpy(),
     )

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from sharp_tpu_torch.ops.linkage import counts_per_problem
 from sharp_tpu_torch.ops.select import opt_hclust
+from sharp_tpu_torch.utils.timers import sub
 
 
 class WMetaCResult(NamedTuple):
@@ -143,19 +144,21 @@ def wmetac(
     G, n_pad = labels.shape[:2]
     dev = labels.device
     rm = real_mask.to(torch.float32)
-    sim = cluster_similarity(
-        labels, real_mask, n_real, K=K, nc_pad=nc_pad, allc_pad=allc_pad
-    )
+    with sub("similarity"):
+        sim = cluster_similarity(
+            labels, real_mask, n_real, K=K, nc_pad=nc_pad, allc_pad=allc_pad
+        )
 
     # --- 6: meta hierarchical clustering --------------------------------
     allC = torch.clamp_max(sim.total_occ, allc_pad)
-    meta = opt_hclust(
-        sim.S, sim.comp_valid, allC,
-        torch.minimum(counts_per_problem(maxN, G, dev).long(), allC - 1),
-        symmetric=True, minN=meta_minN, ncand=meta_ncand, nc_pad=nc_pad,
-        sil_thre=sil_thre, height_Ntimes=height_Ntimes, N_cluster=enN_cluster,
-        hmethod=hmethod, linkage_backend=linkage_backend,
-    )
+    with sub("meta"):
+        meta = opt_hclust(
+            sim.S, sim.comp_valid, allC,
+            torch.minimum(counts_per_problem(maxN, G, dev).long(), allC - 1),
+            symmetric=True, minN=meta_minN, ncand=meta_ncand, nc_pad=nc_pad,
+            sil_thre=sil_thre, height_Ntimes=height_Ntimes, N_cluster=enN_cluster,
+            hmethod=hmethod, linkage_backend=linkage_backend,
+        )
     tf = meta.labels                                              # (G, allc_pad)
 
     # --- 7: majority vote ------------------------------------------------

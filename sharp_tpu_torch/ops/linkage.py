@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from sharp_tpu_torch.ops.distance import BIG
+from sharp_tpu_torch.utils.timers import add, add_device, host_read, sub, tracing
 
 
 class LinkageResult(NamedTuple):
@@ -610,22 +611,61 @@ def rnn_ladder(
     read_every = _read_every(D, fused)
     C = min(compact_n, n)
     s = RnnLadder(D, st)
+    traced = tracing()
+    merged = 0      # merges before the level, on the device while tracing
     lvl = n
     while lvl > C:
         nxt = max(lvl // 2, C)
         P = min(pair_cap, lvl // 2)
-        while True:
-            s.host_reads += 1
-            if not bool(s.active(nxt).any()):
-                break
-            for _ in range(read_every):
-                if fused:
-                    linkage_cuda.rnn_round_kernel(s, nxt, P)
-                else:
-                    s.round(s.active(nxt), P)
-        s.compact(nxt)
+        launched = 0
+        with sub(f"level{lvl}"):
+            while True:
+                s.host_reads += 1
+                if not host_read(s.active(nxt).any(), "ladder.active"):
+                    break
+                for _ in range(read_every):
+                    if fused:
+                        linkage_cuda.rnn_round_kernel(s, nxt, P)
+                    else:
+                        s.round(s.active(nxt), P)
+                launched += read_every
+            if traced:
+                merged = _count_level(s, lvl, nxt, launched, fused, merged)
+            s.compact(nxt)
         lvl = nxt
     return s
+
+
+def _count_level(s: RnnLadder, m: int, nxt: int, launched: int, fused: bool, merged):
+    """The tracer's sums of a finished level of m clusters, before its
+    compaction, with no host read: the lane-rounds launched and those in
+    which a lane was active (`rounds`), and with the round kernel, the
+    bytes its rounds must move by `chip_smoke.round_bytes`' rule, each input
+    read once and each output written once, bounded from below where the
+    count needs a round's matrices before and after it. Every active lane
+    merges at least one pair (the first-index minimum of its matrix is a
+    mutual pair), so the live lanes are the active ones. Per launched
+    lane-round: alive flags, cnt and rounds read; per active lane-round: the
+    row cache read (12 B an entry) and the sizes (4 B), the counters
+    written; per pair: rows a and b read, lasth, gidx read and lasth,
+    alive, merges, heights, sizes written (45 B), and the entries known to
+    change: the dying row's to the >= nxt other clusters alive before the
+    round, and the dying column's in the >= (nxt + 1) / 2 rows alive after
+    it. Left out: the rows read again, the survivors' changed entries and
+    the changed row cache. `merged`: the merges before the level; returns
+    those after it."""
+    L = s.D.shape[0]
+    active = s.rounds.sum()
+    total = s.cnt.sum()
+    pairs = total - merged
+    add("ladder.launched_lane_rounds", L * launched)
+    add_device("ladder.live_lane_rounds", active)
+    if fused:
+        es = s.D.element_size()
+        add("rnn_round.bytes", L * launched * (m + 16))
+        add_device("rnn_round.bytes", active * (16 * m + 16)
+                   + pairs * (2 * m * es + 45 + (nxt + (nxt + 2) // 2) * es))
+    return total
 
 
 def ward_linkage_rnn(
@@ -670,7 +710,9 @@ def ward_linkage_rnn(
     drain = rnn_tail if tail == "xla" else rnn_tail_kernel
     squeeze = D.dim() == 2
     ladder = rnn_ladder(D[None] if squeeze else D, pair_cap, store_dtype, compact_n, round_impl)
-    link = ladder.finish(*drain(*ladder.tail_inputs()))
+    with sub("tail"):
+        tail_out = drain(*ladder.tail_inputs())
+    link = ladder.finish(*tail_out)
     return LinkageResult(link.merges[0], link.heights[0]) if squeeze else link
 
 

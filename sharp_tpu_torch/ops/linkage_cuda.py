@@ -20,6 +20,14 @@ do not synchronise. Each wrapper adds one to its kernel's entry of
 parts of its round), and the problems or lanes it launched to its entry of
 `PROBLEMS`, where it launches the kernel, and nowhere else, under a lock:
 the shards of `parallel/sharded.py` launch from several threads.
+
+While a profiler records, the round's and the cut replay's wrappers also
+go through the tracer (`utils/timers`): the cut replay's bytes
+(`cutree_bytes`, on the CPU too), and a CUDA event pair around each launch
+call of the round (`timers.kernel`), with the arguments built before it,
+read by `timers.snapshot()`. The cut replay gets no event pair: its kernel
+(~11 us a launch at (80, 2048)) ends before the host records the end
+event, so a pair would time the wrapper's host path.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from sharp_tpu_torch.ops.linkage import (
     ward_linkage,
     counts_per_problem,
 )
+from sharp_tpu_torch.utils.timers import add, kernel
 
 # the cut replay keeps its state (2n int32) in shared memory up to the 227 KB
 # a block may opt in to, above that in a global scratch
@@ -312,16 +321,27 @@ def rnn_round_kernel(ladder, nxt: int, P: int) -> None:
 
     lib = load_kernels()["rnn_round.cu"]
     ints, floats, code, F, E = _round_scratch(ladder, L, m, P)
-    rc = lib.sharp_rnn_round_launch(
+    args = (
         W.data_ptr(), ladder.alive.data_ptr(), ladder.sizes.data_ptr(), ladder.gidx.data_ptr(),
         ladder.lasth.data_ptr(), rowmin.data_ptr(), rowarg.data_ptr(), ladder.merges.data_ptr(),
         ladder.heights.data_ptr(), ladder.cnt.data_ptr(), ladder.rounds.data_ptr(), ints.data_ptr(),
         floats.data_ptr(), code.data_ptr(), F.data_ptr(), E.data_ptr(), L, m, n, nxt, P,
         _STORE[W.dtype], _stream(),
     )
+    launch = lib.sharp_rnn_round_launch
+    # the bytes are the ladder's count, at each level's end (`ops.linkage._count_level`)
+    with kernel("rnn_round"):
+        rc = launch(*args)
     _check_rc(rc, "rnn_round")
     _count("rnn_pairs", L)
     _count("rnn_round", L)
+
+
+def cutree_bytes(G: int, m: int, ncand: int) -> int:
+    """The bytes a cut replay of G problems with m merges each must move,
+    from shapes: the merges (8 B each) and the real counts read, the
+    (G, ncand, m + 1) int32 snapshots written."""
+    return G * m * 8 + G * 4 + G * ncand * (m + 1) * 4
 
 
 def cutree_snapshots_kernel(
@@ -337,6 +357,7 @@ def cutree_snapshots_kernel(
     them, and by the serial replay otherwise; `ROUTES["cutree"]` holds the
     route of each problem of the last launch (0 parallel, 1 serial)."""
     if _device_kind(merges) == "cpu":
+        add("cutree.bytes", cutree_bytes(*merges.shape[:2], ncand))
         return cutree_snapshots(merges, n_real, minN=minN, ncand=ncand)
     if merges.dtype != torch.int32:
         raise TypeError(f"cutree takes int32 merges, got {merges.dtype}")
@@ -367,6 +388,7 @@ def cutree_snapshots_kernel(
         G, n, minN, ncand, _stream(),
     )
     _check_rc(rc, "cutree")
+    add("cutree.bytes", cutree_bytes(G, m, ncand))
     _count("cutree", G)
     ROUTES["cutree"] = routes
     return snaps

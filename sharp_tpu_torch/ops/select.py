@@ -53,6 +53,7 @@ from sharp_tpu_torch.ops.linkage import (
 )
 from sharp_tpu_torch.ops.linkage_cuda import cutree_multi_kernel, ward_linkage_serial
 from sharp_tpu_torch.ops.silhouette import sweep_scores_nested
+from sharp_tpu_torch.utils.timers import host_read, sub
 
 _NEG = float("-inf")
 SIL_TIE_EPS = 1e-4
@@ -89,7 +90,8 @@ def linkage(D: torch.Tensor, backend: str, hmethod: str) -> LinkageResult:
     `ops.linkage.resolve_linkage_backend`)."""
     if backend in ("serial", "serial_bf16"):
         store = torch.bfloat16 if backend == "serial_bf16" else torch.float32
-        return ward_linkage_serial(D, store_dtype=store)
+        with sub("ward_serial"):
+            return ward_linkage_serial(D, store_dtype=store)
     if backend in ("rnn", "rnn_bf16"):
         store = torch.bfloat16 if backend == "rnn_bf16" else None
         return ward_linkage_rnn(D, store_dtype=store)
@@ -259,21 +261,25 @@ def opt_hclust(
         mat = mat[None]
     real_mask = real_mask.expand(mat.shape[0], real_mask.shape[-1])
     backend = resolve_linkage_backend(linkage_backend, real_mask.shape[-1], hmethod)
-    D, D_real, feats_unit = prep_distance(mat, real_mask, symmetric)
+    with sub("distance"):
+        D, D_real, feats_unit = prep_distance(mat, real_mask, symmetric)
     if precomputed_link is None:
-        link = linkage(D.contiguous(), backend, hmethod)
+        with sub("linkage"):
+            link = linkage(D.contiguous(), backend, hmethod)
     else:
         link = _given_link(precomputed_link, mat, squeeze)
     del D
     nr = counts_per_problem(n_real, mat.shape[0], mat.device)
-    cuts = cutree_multi_kernel(
-        link.merges, nr, real_mask, maxN, minN=minN, ncand=ncand, nc_pad=nc_pad
-    )
-    res = select_cut(
-        D_real, feats_unit, link, cuts, real_mask, nr, maxN,
-        minN=minN, ncand=ncand, nc_pad=nc_pad, sil_thre=sil_thre,
-        height_Ntimes=height_Ntimes, N_cluster=N_cluster, height_tail=height_tail,
-    )
+    with sub("cutree"):
+        cuts = cutree_multi_kernel(
+            link.merges, nr, real_mask, maxN, minN=minN, ncand=ncand, nc_pad=nc_pad
+        )
+    with sub("select"):
+        res = select_cut(
+            D_real, feats_unit, link, cuts, real_mask, nr, maxN,
+            minN=minN, ncand=ncand, nc_pad=nc_pad, sil_thre=sil_thre,
+            height_Ntimes=height_Ntimes, N_cluster=N_cluster, height_tail=height_tail,
+        )
     return OptHclust(*(x[0] for x in res)) if squeeze else res
 
 
@@ -346,15 +352,16 @@ def get_opt_hclust(
         sil_thre=sil_thre, height_Ntimes=height_Ntimes,
         N_cluster=N_cluster, hmethod=hmethod,
     )
+    site = "select.get_opt_hclust"
     return {
-        "f": res.labels.cpu().numpy()[:n] + 1,
-        "v": res.all_labels.cpu().numpy()[:, :n] + 1,
-        "maxsil": float(res.maxsil),
-        "msil": res.msil.cpu().numpy(),
-        "CHind": res.ch.cpu().numpy(),
-        "height": res.heights.cpu().numpy()[: n - 1],
-        "optN_cluster": int(res.k),
-        "oind": int(res.oind),
+        "f": host_read(res.labels, site).numpy()[:n] + 1,
+        "v": host_read(res.all_labels, site).numpy()[:, :n] + 1,
+        "maxsil": float(host_read(res.maxsil, site)),
+        "msil": host_read(res.msil, site).numpy(),
+        "CHind": host_read(res.ch, site).numpy(),
+        "height": host_read(res.heights, site).numpy()[: n - 1],
+        "optN_cluster": int(host_read(res.k, site)),
+        "oind": int(host_read(res.oind, site)),
     }
 
 
@@ -403,16 +410,17 @@ def gethclust(d, my, *, device="cuda"):
         minN=minN, ncand=ncand, nc_pad=nc_pad,
     )
     valid = cuts.valid
-    maxsil = torch.where(valid, msil, _NEG).max()
-    if float(maxsil) <= 0.35:
-        oind = int(torch.argmax(torch.where(valid, ch, _NEG)))
+    site = "select.gethclust"
+    maxsil = float(host_read(torch.where(valid, msil, _NEG).max(), site))
+    if maxsil <= 0.35:
+        oind = int(host_read(torch.argmax(torch.where(valid, ch, _NEG)), site))
     else:
-        oind = int(_middle_tied_argmax(msil, valid))
+        oind = int(host_read(_middle_tied_argmax(msil, valid), site))
     return {
-        "f": cuts.labels[oind].cpu().numpy()[:n] + 1,
-        "maxsil": float(maxsil),
-        "msil": msil.cpu().numpy(),
-        "CHind": ch.cpu().numpy(),
-        "height": link.heights.cpu().numpy()[: n - 1],
+        "f": host_read(cuts.labels[oind], site).numpy()[:n] + 1,
+        "maxsil": maxsil,
+        "msil": host_read(msil, site).numpy(),
+        "CHind": host_read(ch, site).numpy(),
+        "height": host_read(link.heights, site).numpy()[: n - 1],
         "oind": oind,
     }

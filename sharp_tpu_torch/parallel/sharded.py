@@ -51,7 +51,7 @@ from sharp_tpu_torch.core.large import summaries_to_host
 from sharp_tpu_torch.ops.linkage import counts_per_problem
 from sharp_tpu_torch.ops.linkage_cuda import shard_scope
 from sharp_tpu_torch.ops.silhouette import SWEEP_CHUNK_BYTES, sweep_bytes
-from sharp_tpu_torch.utils.timers import log
+from sharp_tpu_torch.utils.timers import log, span
 
 _CPU_BUDGET = 8 << 30
 
@@ -138,17 +138,19 @@ def _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing):
     genes = X.shape[1]
     for g0 in range(0, len(sizes), group):
         t0 = _now(timing)
-        gsizes = [int(s) for s in sizes[g0 : g0 + group]]
-        Xg = np.zeros((len(gsizes), block_pad, genes), np.float32)
-        for gi, sz in enumerate(gsizes):
-            r0 = offsets[g0 + gi]
-            np.take(X, rows[r0 : r0 + sz], axis=0, out=Xg[gi, :sz], mode="clip")
+        with span("fold_pass.slice"):
+            gsizes = [int(s) for s in sizes[g0 : g0 + group]]
+            Xg = np.zeros((len(gsizes), block_pad, genes), np.float32)
+            for gi, sz in enumerate(gsizes):
+                r0 = offsets[g0 + gi]
+                np.take(X, rows[r0 : r0 + sz], axis=0, out=Xg[gi, :sz], mode="clip")
         t1 = _now(timing)
-        data = torch.from_numpy(Xg).to(dev)
-        if timing is not None:
-            _sync(dev)
-            timing["slice_s"] += t1 - t0
-            timing["transfer_s"] += _now(timing) - t1
+        with span("fold_pass.transfer"):
+            data = torch.from_numpy(Xg).to(dev)
+            if timing is not None:
+                _sync(dev)
+                timing["slice_s"] += t1 - t0
+                timing["transfer_s"] += _now(timing) - t1
         yield gsizes, data, logf
         del data   # this frame's reference: the group goes when the caller drops its own
 
@@ -173,8 +175,9 @@ def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype, ti
         if copied[gi % 2] is not None:
             copied[gi % 2].synchronize()
         t0 = _now(timing)
-        starts = [int(offsets[g0 + j]) for j in range(len(gsizes))]
-        host = fold_triplets(sb, starts, gsizes, block_pad, budget, wire_dtype, out=sets[gi % 2])
+        with span("fold_pass.slice"):
+            starts = [int(offsets[g0 + j]) for j in range(len(gsizes))]
+            host = fold_triplets(sb, starts, gsizes, block_pad, budget, wire_dtype, out=sets[gi % 2])
         return gsizes, host, _now(timing) - t0
 
     n_groups = (T + group - 1) // group
@@ -183,22 +186,24 @@ def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype, ti
         for gi in range(n_groups):
             gsizes, host, slice_s = staged.result()
             t1 = _now(timing)
-            data = [t.to(dev, non_blocking=True) for t in host]
-            if cuda:
-                copied[gi % 2] = torch.cuda.Event()
-                copied[gi % 2].record()
-            if timing is not None:
-                _sync(dev)
-                timing["slice_s"] += slice_s
-                timing["transfer_s"] += _now(timing) - t1
+            with span("fold_pass.transfer"):
+                data = [t.to(dev, non_blocking=True) for t in host]
+                if cuda:
+                    copied[gi % 2] = torch.cuda.Event()
+                    copied[gi % 2].record()
+                if timing is not None:
+                    _sync(dev)
+                    timing["slice_s"] += slice_s
+                    timing["transfer_s"] += _now(timing) - t1
             if gi + 1 < n_groups:
                 staged = pool.submit(stage, gi + 1)
             t2 = _now(timing)
-            Xg = densify_folds(*data, block_pad=block_pad, genes=sb.g, log2p1=logf)
-            del data
-            if timing is not None:
-                _sync(dev)
-                timing["device_s"] += _now(timing) - t2
+            with span("fold_pass.device"):
+                Xg = densify_folds(*data, block_pad=block_pad, genes=sb.g, log2p1=logf)
+                del data
+                if timing is not None:
+                    _sync(dev)
+                    timing["device_s"] += _now(timing) - t2
             yield gsizes, Xg, False
 
 
@@ -221,17 +226,19 @@ def _fold_groups(
     results: List[dict] = []
     for gsizes, Xg, eff_logf in feed:
         t0 = _now(timing)
-        masks = (torch.arange(block_pad)[None, :] < torch.tensor(gsizes)[:, None]).to(dev)
-        if ens is None:
-            out = fold_program(Xg, masks, gsizes, R_all, eff_logf, indN, has_indN=indN is not None, **static)
-        else:
-            out = ens(Xg, masks, gsizes, eff_logf, indN)
-        del Xg
-        if timing is not None:
-            _sync(dev)
-            t1 = _now(timing)
-            timing["device_s"] += t1 - t0
-        results.extend(summaries_to_host(out, gsizes, cfg.forview))
+        with span("fold_pass.device"):
+            masks = (torch.arange(block_pad)[None, :] < torch.tensor(gsizes)[:, None]).to(dev)
+            if ens is None:
+                out = fold_program(Xg, masks, gsizes, R_all, eff_logf, indN, has_indN=indN is not None, **static)
+            else:
+                out = ens(Xg, masks, gsizes, eff_logf, indN)
+            del Xg
+            if timing is not None:
+                _sync(dev)
+                t1 = _now(timing)
+                timing["device_s"] += t1 - t0
+        with span("fold_pass.readback"):
+            results.extend(summaries_to_host(out, gsizes, cfg.forview))
         if timing is not None:
             timing["readback_s"] += _now(timing) - t1
     return results
@@ -277,7 +284,9 @@ def process_folds_grouped(
     part and prints the seconds of each (`[fold-timing] slice_s=...
     transfer_s=... device_s=... readback_s=...`, to stderr): the host's
     slicing, the copies to the card, the densify and the fold program, and
-    the summaries' readback.
+    the summaries' readback. Without it a profiler sees the same four parts
+    as the spans `sharp.fold_pass.{slice,transfer,device,readback}`, on its
+    own clock and with no synchronise.
     """
     dev = torch.device(device)
     T = len(sizes)

@@ -37,7 +37,7 @@ from sharp_tpu_torch.io.blocks import BlockStore
 from sharp_tpu_torch.ops.rp import ensemble_rp_matrix
 from sharp_tpu_torch.types import SharpResult
 from sharp_tpu_torch.utils.prng import resolve_seed, view_generator
-from sharp_tpu_torch.utils.timers import StageTimer, log
+from sharp_tpu_torch.utils.timers import StageTimer, host_read, log, span, sub
 
 def _config_fingerprint(cfg: SharpConfig, wire_dtype: str = "float32") -> str:
     """The manifest key of a run's configuration. forview is part of it (a
@@ -99,7 +99,7 @@ def _view_rp_matrix(cfg: SharpConfig, rN_seed: int, device="cpu") -> Optional[np
     from sharp_tpu_torch.ops.rp import ternary_rp_matrix
 
     R = ternary_rp_matrix(view_generator(rN_seed, device), cfg.reduced_ndim, 50)
-    return R.cpu().numpy().astype(np.float32) / np.sqrt(50.0)
+    return host_read(R, "streaming.view_rp").numpy().astype(np.float32) / np.sqrt(50.0)
 
 
 def _block_view_features(frs: List[dict], R_view) -> np.ndarray:
@@ -149,6 +149,11 @@ def global_block_fuse(summaries, cfg: SharpConfig, device="cuda"):
     from sharp_tpu_torch.api import resolve_device
 
     device = resolve_device(device)
+    with span("global_block_fuse"):
+        return _global_block_fuse(summaries, cfg, device)
+
+
+def _global_block_fuse(summaries, cfg: SharpConfig, device: torch.device):
     if len(summaries) == 1:
         # one block's consensus IS the final clustering: re-clustering its
         # ~k near-equidistant centroids has no replica structure for sMetaC
@@ -179,13 +184,14 @@ def global_block_fuse(summaries, cfg: SharpConfig, device="cuda"):
         minN = max(2, maxN)
     ncand = max(maxN - minN + 1, 1)
     meta_nc_pad = ((min(maxN, NC) + 9) // 8) * 8
-    sres = smetac(
-        torch.from_numpy(cents_p).to(device), torch.from_numpy(valid).to(device), NC, maxN,
-        minN=minN, ncand=ncand, meta_nc_pad=meta_nc_pad,
-        sil_thre=cfg.sil_thre, height_Ntimes=cfg.height_Ntimes,
-        finalN_cluster=cfg.N_cluster, linkage_backend=cfg.linkage_backend,
-    )
-    tf = sres.tf.cpu().numpy()
+    with sub("smetac"):
+        sres = smetac(
+            torch.from_numpy(cents_p).to(device), torch.from_numpy(valid).to(device), NC, maxN,
+            minN=minN, ncand=ncand, meta_nc_pad=meta_nc_pad,
+            sil_thre=cfg.sil_thre, height_Ntimes=cfg.height_Ntimes,
+            finalN_cluster=cfg.N_cluster, linkage_backend=cfg.linkage_backend,
+        )
+        tf = host_read(sres.tf, "streaming.global_tf").numpy()
 
     # global meta-cluster sizes from the summary counts, then the relabel
     # by decreasing size (R/SHARP_unlimited.R:179-183)
@@ -245,7 +251,7 @@ def sharp_unlimited(
     from sharp_tpu_torch.api import resolve_device
 
     dev = resolve_device(device)
-    timer = StageTimer()
+    timer = StageTimer("unlimited")
 
     # --- resolve input form ---------------------------------------------
     store: Optional[BlockStore] = None

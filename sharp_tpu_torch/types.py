@@ -13,6 +13,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from sharp_tpu_torch.utils.timers import span
+
 
 @dataclasses.dataclass
 class SharpResult:
@@ -52,13 +54,14 @@ def finalize_labels(
     labels are renumbered by first occurrence, `match(y, unique(y))`
     (R/SHARP.R:428-443).
     """
-    y = np.asarray(raw_labels).copy()
-    if merge_tiny:
-        vals, counts = np.unique(y, return_counts=True)
-        tiny = vals[counts < tiny_threshold]
-        if len(tiny) > 0:
-            y[np.isin(y, tiny)] = tiny.min()
-    _, first_idx = np.unique(y, return_index=True)
-    order = y[np.sort(first_idx)]
-    remap = {v: i + 1 for i, v in enumerate(order)}
-    return np.asarray([remap[v] for v in y], dtype=np.int32)
+    with span("finalize_labels"):
+        y = np.asarray(raw_labels).copy()
+        if merge_tiny:
+            vals, counts = np.unique(y, return_counts=True)
+            tiny = vals[counts < tiny_threshold]
+            if len(tiny) > 0:
+                y[np.isin(y, tiny)] = tiny.min()
+        _, first_idx = np.unique(y, return_index=True)
+        order = y[np.sort(first_idx)]
+        remap = {v: i + 1 for i, v in enumerate(order)}
+        return np.asarray([remap[v] for v in y], dtype=np.int32)

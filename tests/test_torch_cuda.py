@@ -852,3 +852,59 @@ def test_fold_timing_line_on_card(dev, monkeypatch, capsys, feed):
     for a, b in zip(timed, plain):
         for k in ("finalC", "n_meta", "counts", "k_per", "overflow"):
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
+
+
+def test_tracer_counts_on_card(dev):
+    """The tracer on the card: the host reads it counts in one sharp() call
+    are the device-to-host copies of a CUDA profile of that call, all
+    under its API span; the round kernel's launches carry bytes and
+    CUDA-event time, which holds each launch's kernels: never less than
+    their device time in the trace; the cut replay carries its bytes."""
+    import os
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synth import make_tpm_like
+
+    import sharp_tpu_torch
+    from sharp_tpu_torch.ops import linkage_cuda
+    from sharp_tpu_torch.ops.linkage import ward_linkage_rnn
+    from sharp_tpu_torch.utils import timers
+
+    X, _ = make_tpm_like(n_cells=300, n_genes=400, n_types=4, seed=8)
+    kw = dict(rN_seed=11, ensize_K=5, exp_type="TPM", device=dev)
+    sharp_tpu_torch.sharp(X, **kw)
+    torch.cuda.synchronize()
+    timers.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sharp_tpu_torch.sharp(X, **kw)
+        torch.cuda.synchronize()
+    snap = timers.snapshot()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if not str(e.device_type()).endswith("CPU") and not e.is_user_annotation()]
+    copies = sum(1 for n in names if "DtoH" in n or "Device -> Host" in n)
+    assert snap["host_reads_under"]["api"] == sum(snap["host_reads"].values()) == copies == 7
+
+    def kernel_ms(prof, names):
+        return sum(e.end_ns() - e.start_ns() for e in prof.profiler.kineto_results.events()
+                   if not str(e.device_type()).endswith("CPU") and any(n in e.name() for n in names)) / 1e6
+
+    timers.reset()
+    before = linkage_cuda.LAUNCHES["rnn_round"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ward_linkage_rnn(_distances(3, 512, 500, 16, 3, dev), compact_n=64)
+        torch.cuda.synchronize()
+    snap = timers.snapshot()
+    k = snap["kernels"]["rnn_round"]
+    launches = linkage_cuda.LAUNCHES["rnn_round"] - before
+    assert launches > 0 and k["bytes"] > 0
+    # event stamps resolve to about half a microsecond; 1 us a launch of room
+    assert k["ms"] >= kernel_ms(prof, ("rnn_pairs_select", "rnn_pairs_rows", "rnn_round_scatter")) - 1e-3 * launches > 0
+    assert 0 < snap["sums"]["ladder.live_lane_rounds"] < snap["sums"]["ladder.launched_lane_rounds"]
+    timers.reset()
+    merges = torch.stack([torch.zeros(2047, dtype=torch.int32), torch.arange(1, 2048, dtype=torch.int32)], 1)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        linkage_cuda.cutree_snapshots_kernel(merges.expand(80, 2047, 2).contiguous().to(dev), 2048, minN=2, ncand=39)
+    assert timers.snapshot()["kernels"]["cutree"] == {"bytes": linkage_cuda.cutree_bytes(80, 2047, 39), "ms": 0}
