@@ -6,11 +6,21 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. build    nvcc builds the hand-written kernels (csrc/*.cu: serial Ward,
-              the cut replay, the ladder's tail and its round) into
-              build/kernels/, one nvcc per source, all at once.
+              the cut replay, the ladder's tail and its round, the RP
+              operand) into build/kernels/, one nvcc per source, all at once.
   2. data     the flagship block: 50,000 cells x 27,998 genes, 10 planted
               types (tests/synth.py, data seed 0), made once on the host.
   3. kernels  each kernel against its plain PyTorch version on the card.
+              First the RP product at a fold group's shape (16 x 2,048 rows
+              of the flagship block, 27,998 genes, K=5 x p=256 in bf16): the
+              operand kernel identical to log2p1(X).to(bf16) with zero pad
+              columns, the tensor-core product within 1e-6 norm-wise of the
+              float64 product of the same operands; the operand kernel
+              timed beside its bound (bytes over 3.35 TB/s) and its plain
+              version, the product beside its bound (bf16 operations over
+              989 TFLOP/s) and today's float32 torch.matmul of the same
+              operands (library_ms), the whole stage beside the float32
+              stage it replaces, and each one's device kernels.
               Serial Ward in f32 and in bf16 storage (merges and heights
               identical) at (K=15, n=512, 479 real) from Pearson distances
               of projected data, at (1, 640) from a wMetaC-like similarity,
@@ -248,7 +258,10 @@ and what bounds it. The ladder round's wrapper launches two kernels, each
 listed: rnn_pairs (the pairs' selection and fresh rows) and rnn_round (the
 scatter and the next row cache); their plain version is the plain round.
 No single PyTorch call
-computes any of these functions, so library_ms is null. The full record
+computes any of the linkage kernels' functions, so their library_ms is
+null; the RP operand's entry carries the float32 torch.matmul of the same
+operands as library_ms, and the tensor-core product and the whole stage
+beside it. The full record
 goes to chiprun_out/chip_smoke.json. Without a CUDA device the script exits
 1 and prints no result; it imports nothing of JAX or of the JAX package and
 fails if either is loaded.
@@ -272,6 +285,10 @@ PLAIN_REPS = 3
 # (NVIDIA's data sheet), for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# the tensor cores' dense bf16 rate (NVIDIA's data sheet), for the RP
+# product's bound, and the atlas's ensemble (K members of width p)
+BF16_FLOPS = 989e12
+RP_K, RP_P = 5, 256
 SEED_KW = dict(rN_seed=2103, exp_type="TPM")
 FLAGSHIP = dict(n_cells=50000, n_genes=27998, n_types=10, seed=0)
 FOLD, GROUP = 2000, 16
@@ -603,6 +620,107 @@ def _small_tier_distance(dev, n_cells):
     return D.contiguous(), n_cells
 
 
+def _device_breakdown(fn, reps=KERNEL_REPS):
+    """Every device kernel of fn on the card (torch.profiler): {name: mean
+    ms a call of fn} over `reps` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+        if t > 0 and ev.device_type is not None and "CPU" not in str(ev.device_type):
+            out[ev.key] = t / reps / 1e3
+    return out
+
+
+def _hold_rp(dev, Xbig):
+    """The RP product at the main path's shape: a fold group's 16 x 2,048
+    rows of the flagship block, 27,998 genes, the atlas's K=5 x p=256 in
+    bfloat16. The operand kernel identical to its plain version (pads
+    zero), the tensor-core product within 1e-6 norm-wise of the float64
+    product of the same operands; each timed beside its bound (operand:
+    bytes; product: bf16 operations over the tensor cores' rate), the plain
+    operand's time, today's float32 torch.matmul of the same operands
+    (library_ms), and the whole stage against the float32 stage it
+    replaces."""
+    import torch
+    import torch.nn.functional as F
+
+    from sharp_tpu_torch.ops import rp
+    from sharp_tpu_torch.utils.prng import fixed_generator
+
+    n, genes = GROUP * 2048, Xbig.shape[1]
+    cols = -(-genes // 8) * 8
+    X = torch.from_numpy(Xbig[:n]).to(dev)
+    R = rp.ternary_rp_matrix(fixed_generator(0, dev), genes, RP_K * RP_P).to(torch.bfloat16)
+    Rpad = F.pad(R, (0, 0, 0, cols - genes))
+    bf16 = torch.bfloat16
+    Xb = rp.rp_operand(X, bf16, True)
+    plain = rp.rp_operand_plain(X, bf16, True, cols)
+    if not torch.equal(Xb.view(torch.int16), plain.view(torch.int16)):
+        raise AssertionError("rp_operand: the kernel and its plain version disagree")
+    del plain
+    prod = torch.mm(Xb, Rpad, out_dtype=torch.float32)
+    ref = Xb.double() @ Rpad.double()
+    err = ((prod.double() - ref).norm() / ref.norm()).item()
+    del ref, prod
+    if not err < 1e-6:
+        raise AssertionError(f"rp product: norm-wise relative error {err} against float64, limit 1e-6")
+    scale = torch.tensor(float(RP_P), device=dev).rsqrt()
+
+    def before():
+        # the float32 stage this replaces: log2, bf16 rounding, a float32
+        # copy, the float32 product, the scale
+        out = torch.matmul(rp.log2p1(X).to(bf16).float(), R.float())
+        return (out * scale).reshape(n, RP_K, RP_P).permute(1, 0, 2).contiguous()
+
+    flops = 2.0 * n * genes * RP_K * RP_P
+    row = dict(
+        shape=[n, genes, RP_K * RP_P], product_rel_err=err,
+        operand_ms=_median_ms(lambda: rp.rp_operand(X, bf16, True), KERNEL_REPS),
+        operand_plain_ms=_median_ms(lambda: rp.rp_operand_plain(X, bf16, True, cols), PLAIN_REPS),
+        operand_bound_ms=(X.numel() * 4 + n * cols * 2) / HBM_BYTES_PER_S * 1e3,
+        product_ms=_median_ms(lambda: torch.mm(Xb, Rpad, out_dtype=torch.float32), KERNEL_REPS),
+        product_bound_ms=flops / BF16_FLOPS * 1e3,
+        stage_ms=_median_ms(lambda: rp.rp_project_ensemble(X, R, K=RP_K, log_transform=True), KERNEL_REPS),
+        stage_before_ms=_median_ms(before, PLAIN_REPS),
+    )
+    Xf, Rf = Xb.float(), Rpad.float()
+    row["library_ms"] = _median_ms(lambda: torch.matmul(Xf, Rf), PLAIN_REPS)
+    del Xf, Rf
+    row["operand_device"] = _device_breakdown(lambda: rp.rp_operand(X, bf16, True))
+    row["product_device"] = _device_breakdown(lambda: torch.mm(Xb, Rpad, out_dtype=torch.float32))
+    row["stage_device"] = _device_breakdown(lambda: rp.rp_project_ensemble(X, R, K=RP_K, log_transform=True))
+    print(
+        f"[kernels] rp_operand ({n}, {genes}) -> bf16 ({n}, {cols}): identical to the plain version; "
+        f"{row['operand_ms']:.3f} ms (plain {row['operand_plain_ms']:.3f} ms, bound {row['operand_bound_ms']:.3f} ms "
+        f"of bytes); device {row['operand_device']}",
+        flush=True,
+    )
+    print(
+        f"[kernels] rp product ({n} x {cols}) x ({cols} x {RP_K * RP_P}) bf16 -> f32 on the tensor cores: "
+        f"{row['product_ms']:.3f} ms (bound {row['product_bound_ms']:.3f} ms of bf16 operations; float32 "
+        f"torch.matmul, library_ms, {row['library_ms']:.3f} ms); norm-wise error {err:.3e}; device "
+        f"{row['product_device']}",
+        flush=True,
+    )
+    print(
+        f"[kernels] rp stage (log2, operand, product, scale and layout): {row['stage_ms']:.3f} ms; the float32 "
+        f"stage it replaces {row['stage_before_ms']:.3f} ms; device {row['stage_device']}",
+        flush=True,
+    )
+    del X, Xb, R, Rpad
+    torch.cuda.empty_cache()
+    return row
+
+
 def _hold_tail(name, args):
     """The tail kernel on the ladder's compacted subproblems `args`
     (`RnnLadder.tail_inputs()`) against the plain tail: mi, mj, hh identical
@@ -652,6 +770,7 @@ def phase_kernels(dev, record, Xbig, ybig):
     from sharp_tpu_torch.ops.linkage_cuda import cutree_snapshots_kernel
 
     rows = {}
+    record["rp"] = _hold_rp(dev, Xbig)
     # --- small-tier shapes -------------------------------------------------
     cfg = resolve_config(479, 20000, **SEED_KW)
     _hold_ward_and_cutree("ward_15x512", *_small_tier_distance(dev, 479), rows)
@@ -1057,28 +1176,31 @@ class _RouteLog(dict):
 def _run_counted(X, entry="sharp", **kw):
     """One call of the port's `sharp` (or `sharp_unlimited`) with every
     kernel's launch and problem counts set to 0 just before it and read just
-    after, and the routes its cut-replay problems and tail lanes took.
+    after, and the routes its cut-replay problems and tail lanes took, and
+    its RP products' (`routes["rp"]["tensor_core"]`: the operand kernel's
+    launches, one a product on the tensor-core route).
     Returns (result, wall, launches, problems, routes)."""
     import torch
 
     import sharp_tpu_torch
-    from sharp_tpu_torch.ops import linkage_cuda
+    from sharp_tpu_torch.ops import linkage_cuda, rp
 
     log, saved = _RouteLog(), linkage_cuda.ROUTES
     linkage_cuda.ROUTES = log
     try:
         linkage_cuda.SHARD_LAUNCHES.clear()
         linkage_cuda.SHARD_PROBLEMS.clear()
-        for counter in (linkage_cuda.LAUNCHES, linkage_cuda.PROBLEMS):
+        for counter in (linkage_cuda.LAUNCHES, linkage_cuda.PROBLEMS, rp.LAUNCHES):
             counter.update(dict.fromkeys(counter, 0))
         t0 = time.perf_counter()
         res = getattr(sharp_tpu_torch, entry)(X, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, problems = dict(linkage_cuda.LAUNCHES), dict(linkage_cuda.PROBLEMS)
+        routes = dict(log.counts(), rp={"tensor_core": rp.LAUNCHES["rp_operand"]})
     finally:
         linkage_cuda.ROUTES = saved
-    return res, wall, counts, problems, log.counts()
+    return res, wall, counts, problems, routes
 
 
 def _stages(res):
@@ -1772,6 +1894,11 @@ def phase_unlimited(dev, record, tmp):
         raise AssertionError(f"unlimited (b): a linkage went without its cut replay: {counts}")
     if routes["cutree"]["serial"]:
         raise AssertionError(f"unlimited (b): cut-replay problems took the serial route: {routes}")
+    # bf16 RP operands: every fold group's product on the tensor cores, one
+    # operand kernel launch each
+    if routes["rp"]["tensor_core"] != groups:
+        raise AssertionError(f"unlimited (b): {routes['rp']['tensor_core']} RP products on the tensor cores "
+                             f"for {groups} fold groups: {routes}")
     out["flagship_4x50000x27998"] = dict(
         n_cells=n_cells, wall_s=wall, warm_s=warm_s, cells_per_s=n_cells / wall, ari=score,
         clusters=res.N_pred_cluster, stages=stages, launches=counts, problems=problems, routes=routes,
@@ -2686,6 +2813,29 @@ def main() -> int:
             "wide_shapes": wide_shapes,
         }
 
+    def rp_entry(r):
+        # the RP operand kernel at a fold group's shape; launches: phase 6
+        # (b)'s sharp_unlimited over the 4 flagship blocks in bf16, one a
+        # fold group (gated there), and by path the runs that count them
+        # (the large tier's and the two shards' runs are float32: 0);
+        # library_ms: today's float32 product of the same operands, and the
+        # tensor-core product beside it
+        return {
+            "name": "rp_operand", "route": "cuda", "source": "sharp_tpu_torch/csrc/rp_operand.cu",
+            "replaces": None, "launches": rp_launches["unlimited"], "launches_by_path": rp_launches,
+            "max_abs_err": 0.0,
+            "ms": r["operand_ms"], "plain_ms": r["operand_plain_ms"], "bound_ms": r["operand_bound_ms"],
+            "bound_by": "bytes", "library_ms": r["library_ms"],
+            "device_ms": sum(r["operand_device"].values()) or None,
+            "product": {"ms": r["product_ms"], "bound_ms": r["product_bound_ms"], "bound_by": "operations",
+                        "rel_err": r["product_rel_err"], "device": r["product_device"]},
+            "stage": {"ms": r["stage_ms"], "before_ms": r["stage_before_ms"]},
+        }
+
+    rp_launches = {
+        "large": record["large"]["flagship_50000x27998"]["auto"]["routes"]["rp"]["tensor_core"],
+        "unlimited": record["unlimited"]["flagship_4x50000x27998"]["routes"]["rp"]["tensor_core"],
+    }
     kernels = {
         "kernels": [
             entry("rnn_round", "sharp_tpu/ops/linkage_pallas.py:854", round_err,
@@ -2704,6 +2854,7 @@ def main() -> int:
             entry("cutree", "sharp_tpu/ops/linkage_pallas.py:953", cut["cutree_max_abs_err"],
                   cut["cutree_ms"], cut["cutree_plain_ms"], cut["cutree_bound_ms"], cut["cutree_bound_by"],
                   cut["cutree_device_ms"]),
+            rp_entry(record["rp"]),
         ]
     }
     record["kernels_line"] = kernels

@@ -20,7 +20,7 @@ import torch
 
 from sharp_tpu_torch.ops.linkage import counts_per_problem, resolve_linkage_backend
 from sharp_tpu_torch.ops.linkage_cuda import cutree_multi_kernel
-from sharp_tpu_torch.ops.rp import log2p1, rp_project_ensemble
+from sharp_tpu_torch.ops.rp import rp_project_ensemble
 from sharp_tpu_torch.ops.select import linkage, prep_distance, select_cut
 from sharp_tpu_torch.utils.timers import sub
 
@@ -62,9 +62,11 @@ def cluster_block_ensemble(
     maxN = int(maxN)
 
     with sub("rp"):
-        Xt = log2p1(Xf) if log_transform else Xf
-        # through the module's global, which a caller may wrap
-        proj = rp_project_ensemble(Xt.reshape(G * n_pad, genes), R_all, K=K)   # (K, G*n_pad, p)
+        # the whole RP stage, log2 included, in one call through the
+        # module's global, which a caller may wrap
+        proj = rp_project_ensemble(
+            Xf.reshape(G * n_pad, genes), R_all, K=K, log_transform=log_transform
+        )                                                                  # (K, G*n_pad, p)
     p = proj.shape[-1]
     proj = proj.reshape(K, G, n_pad, p).transpose(0, 1)                     # (G, K, n_pad, p)
     proj = proj * masks[:, None, :, None].to(proj.dtype)

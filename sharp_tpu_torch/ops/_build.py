@@ -12,7 +12,8 @@ one build.
 
 Flags: `--fmad=false` keeps the float arithmetic unfused (the Ward kernel
 also spells its update with round-to-nearest intrinsics), and there is no
-`--use_fast_math`: the Lance-Williams division must be IEEE.
+`--use_fast_math`: the Lance-Williams division must be IEEE, and the RP
+operand's `log2f` must be torch's.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("ward_serial.cu", "cutree.cu", "rnn_tail.cu", "rnn_round.cu")
+SOURCES = ("ward_serial.cu", "cutree.cu", "rnn_tail.cu", "rnn_round.cu", "rp_operand.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -39,6 +40,7 @@ NVCC_FLAGS = (
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
+_INT64 = ctypes.c_longlong
 # C signatures of the exported functions, per source
 _SIGNATURES = {
     "ward_serial.cu": {
@@ -59,6 +61,11 @@ _SIGNATURES = {
     "rnn_round.cu": {
         "sharp_rnn_round_launch": (
             _INT, [_VOID_P] * 16 + [_INT] * 6 + [_VOID_P]
+        ),
+    },
+    "rp_operand.cu": {
+        "sharp_rp_operand_launch": (
+            _INT, [_VOID_P, _VOID_P, _INT64] + [_INT] * 4 + [_VOID_P]
         ),
     },
 }

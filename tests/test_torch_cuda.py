@@ -908,3 +908,208 @@ def test_tracer_counts_on_card(dev):
     with profile(activities=[ProfilerActivity.CUDA]):
         linkage_cuda.cutree_snapshots_kernel(merges.expand(80, 2047, 2).contiguous().to(dev), 2048, minN=2, ncand=39)
     assert timers.snapshot()["kernels"]["cutree"] == {"bytes": linkage_cuda.cutree_bytes(80, 2047, 39), "ms": 0}
+
+
+# --- the RP product: operand kernel and tensor-core product ------------------
+
+def _cells(n, genes, dev, seed=0, big=False):
+    """Expression-like float32 cells: log-normal with a fifth zeros (and,
+    with `big`, some values past float16's range)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.empty((n, genes), device=dev).log_normal_(1.0, 2.0, generator=g)
+    X[torch.rand((n, genes), generator=g, device=dev) < 0.2] = 0.0
+    if big:
+        X[torch.rand((n, genes), generator=g, device=dev) < 0.01] = 1e5
+    return X
+
+
+@pytest.mark.parametrize("n,genes", [(256, 27998), (33, 1000), (37, 61)])
+@pytest.mark.parametrize("log_transform", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_rp_operand_kernel_matches_plain(dev, dtype, log_transform, n, genes):
+    """The operand kernel is `log2p1(X).to(dtype)` bit for bit (27,998 genes
+    take float2 loads and a ragged octet, 1,000 float2 loads alone, 61
+    single loads), and its pad columns are exact zeros."""
+    from sharp_tpu_torch.ops import rp
+
+    X = _cells(n, genes, dev, seed=genes, big=not log_transform)
+    before = rp.LAUNCHES["rp_operand"]
+    got = rp.rp_operand(X, dtype, log_transform)
+    torch.cuda.synchronize()
+    assert rp.LAUNCHES["rp_operand"] == before + 1
+    cols = -(-genes // 8) * 8
+    plain = rp.rp_operand_plain(X, dtype, log_transform, cols)
+    assert got.shape == plain.shape == (n, cols) and got.dtype == dtype
+    assert torch.equal(got.view(torch.int16), plain.view(torch.int16))
+    assert torch.equal(got[:, genes:].view(torch.int16), torch.zeros((n, cols - genes), dtype=torch.int16, device=dev))
+    with pytest.raises(TypeError):
+        rp.rp_operand(X.double(), dtype, log_transform)
+    with pytest.raises(TypeError):
+        rp.rp_operand(X, torch.float32, log_transform)
+    with pytest.raises(ValueError):
+        rp.rp_operand(X.T, dtype, log_transform)
+
+
+def test_rp_tensor_core_product_error(dev):
+    """The tensor-core product at a fold's shape, (2,048 x 27,998) x
+    (27,998 x 1,280) in bfloat16, is within 1e-6 norm-wise relative error
+    of the float64 product of the same rounded operands."""
+    from sharp_tpu_torch.ops import rp
+
+    K, p = 5, 256
+    X = _cells(2048, 27998, dev)
+    R = rp.ensemble_rp_matrix(7, K, 27998, p, dtype=torch.bfloat16, device=dev)
+    got = rp.rp_project_ensemble(X, R, K=K, log_transform=True)
+    Xb = rp.log2p1(X).to(torch.bfloat16)
+    ref = (Xb.double() @ R.double()) / np.sqrt(p)
+    ref = ref.reshape(2048, K, p).permute(1, 0, 2)
+    err = ((got.double() - ref).norm() / ref.norm()).item()
+    assert got.dtype == torch.float32 and got.shape == (K, 2048, p) and got.is_contiguous()
+    assert err < 1e-6, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float8_e4m3fn])
+def test_rp_float32_and_float8_routes_unchanged(dev, dtype):
+    """A float32 R (TF32 off) and the benchmark control's float8 R keep the
+    float32 route: the cells rounded to R's dtype, a float32 torch.matmul,
+    the scale; bit for bit, with no operand kernel."""
+    from sharp_tpu_torch.ops import rp
+
+    K, p, genes = 3, 40, 1003
+    X = _cells(300, genes, dev)
+    R = rp.ensemble_rp_matrix(2, K, genes, p, device=dev).to(dtype)
+    before = rp.LAUNCHES["rp_operand"]
+    for log_transform in (True, False):
+        Xc = rp.log2p1(X) if log_transform else X
+        ref = torch.matmul(Xc.to(dtype).float(), R.float())
+        ref = (ref * torch.tensor(float(p), device=dev).rsqrt()).reshape(300, K, p).permute(1, 0, 2)
+        got = rp.rp_project_ensemble(X, R, K=K, log_transform=log_transform)
+        # raw cells past float8's range round to NaN on both routes
+        torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+        one = (torch.matmul(Xc.to(dtype).float(), R[:, :p].float()) * torch.tensor(float(p), device=dev).rsqrt())
+        got = rp.rp_project(X, R[:, :p], log_transform=log_transform)
+        torch.testing.assert_close(got, one, rtol=0, atol=0, equal_nan=True)
+    assert rp.LAUNCHES["rp_operand"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_rp_product_unmoved_by_reduction_flags(dev, dtype):
+    """cuBLAS's reduced-precision reduction flags concern sums kept in a
+    16-bit output; the RP product's output is float32, so at a fold's shape
+    (2,048 x 27,998) x (27,998 x 1,280) it is bit for bit the same with
+    them on (torch's default) and off, and the call leaves them as they
+    were."""
+    from sharp_tpu_torch.ops import rp
+
+    mm = torch.backends.cuda.matmul
+    saved = [(mm.allow_bf16_reduced_precision_reduction, mm.allow_bf16_reduced_precision_reduction_split_k),
+             (mm.allow_fp16_reduced_precision_reduction, mm.allow_fp16_reduced_precision_reduction_split_k)]
+    X = _cells(2048, 27998, dev)
+    R = rp.ensemble_rp_matrix(7, 5, 27998, 256, dtype=dtype, device=dev)
+    try:
+        mm.allow_bf16_reduced_precision_reduction = mm.allow_fp16_reduced_precision_reduction = True
+        on = rp.rp_project_ensemble(X, R, K=5, log_transform=True)
+        assert mm.allow_bf16_reduced_precision_reduction and mm.allow_fp16_reduced_precision_reduction
+        mm.allow_bf16_reduced_precision_reduction = mm.allow_fp16_reduced_precision_reduction = False
+        off = rp.rp_project_ensemble(X, R, K=5, log_transform=True)
+        assert not (mm.allow_bf16_reduced_precision_reduction or mm.allow_fp16_reduced_precision_reduction)
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = saved[0]
+        mm.allow_fp16_reduced_precision_reduction = saved[1]
+    assert torch.equal(on, off)
+
+
+def test_rp_operand_kernel_under_its_operator(dev):
+    """The operand kernel's launch is the operator `sharp::rp_operand`:
+    the profiler ties the kernel to that host operation, so a span around
+    the projection holds the kernel's device time as it holds aten's; and
+    R's padded copy is made once for an R, again after R is written."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from sharp_tpu_torch.ops import rp
+
+    X = _cells(512, 27998, dev)
+    R = rp.ensemble_rp_matrix(7, 2, 27998, 64, dtype=torch.bfloat16, device=dev)
+    first = rp.rp_project_ensemble(X, R, K=2, log_transform=True)
+    padded = rp._padded_rows(R, 28000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("rp.span"):
+            again = rp.rp_project_ensemble(X, R, K=2, log_transform=True)
+        torch.cuda.synchronize()
+    assert torch.equal(first, again) and rp._padded_rows(R, 28000) is padded
+    events = prof.profiler.kineto_results.events()
+    kernels = [e for e in events if "rp_operand_kernel" in e.name()]
+    assert len(kernels) == 1 and kernels[0].linked_correlation_id()
+    # the profiler's own events may share the id; the operator is among them
+    linked = {e.name() for e in events if str(e.device_type()).endswith("CPU")
+              and e.correlation_id() == kernels[0].linked_correlation_id()}
+    assert "sharp::rp_operand" in linked, linked
+    R.mul_(2)
+    assert rp._padded_rows(R, 28000) is not padded
+    # doubling every entry doubles every product and sum exactly
+    assert torch.equal(rp.rp_project_ensemble(X, R, K=2, log_transform=True), 2 * first)
+
+
+def test_rp_operand_first_call_imports_no_compiler(dev):
+    """The operator's first call, in a fresh process, imports none of
+    torch's compiler stack (`torch.library.custom_op` would, on its first
+    call: seconds of every run's set-up)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("import sys, torch\n"
+            "from sharp_tpu_torch.ops import rp\n"
+            "rp.rp_operand(torch.ones((4, 9), device='cuda'), torch.bfloat16, True)\n"
+            "torch.cuda.synchronize()\n"
+            "print(sorted(m for m in ('torch._dynamo', 'torch._inductor') if m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_rp_tracer_counts_rows_by_route(dev):
+    """One atlas-shaped fold group (16 x 2,048 rows x 27,998 genes, K=5,
+    p=256, bfloat16) through the fold program: the tracer counts its 32,768
+    rows on the tensor-core route and none on the float32 route, and the
+    host does not synchronise under `sharp.fold.rp` (the scale was an
+    upload that did); a float32
+    call counts its rows on the float32 route and none on the other."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sharp_tpu_torch.config import resolve_config
+    from sharp_tpu_torch.core.fold import fold_program, fold_static_args
+    from sharp_tpu_torch.ops import rp
+    from sharp_tpu_torch.utils import timers
+
+    G, B, genes, K, p = 16, 2048, 27998, 5, 256
+    cfg = resolve_config(1306127, genes, ensize_K=K, reduced_ndim=p, partition_ncells=2000,
+                         dtype_compute="bfloat16", forview=False, rN_seed=7)
+    R = rp.ensemble_rp_matrix(7, K, genes, p, dtype=torch.bfloat16, device=dev)
+    X = torch.empty((G, B, genes), device=dev)
+    for g in range(G):
+        X[g] = _cells(B, genes, dev, seed=g)
+    masks = torch.arange(B, device=dev)[None, :] < 2000
+    masks = masks.expand(G, B).contiguous()
+    rp.rp_project_ensemble(X[0, :8], R, K=K, log_transform=True)     # the scale, the kernels
+    torch.cuda.synchronize()
+    timers.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fold_program(X, masks, [2000] * G, R, True, None, **fold_static_args(cfg))
+        out.n_meta.cpu()
+    sums = timers.snapshot()["sums"]
+    assert sums["rp.tensor_core_rows"] == G * B and "rp.float32_rows" not in sums
+    events = [e for e in prof.events() if str(e.device_type).endswith("CPU")]
+    spans = [e.time_range for e in events if e.name == "sharp.fold.rp"]
+    assert len(spans) == 1
+    inside = [e.name for e in events
+              if spans[0].start <= e.time_range.start and e.time_range.end <= spans[0].end]
+    assert any("Launch" in n for n in inside), inside
+    assert not [n for n in inside if "Synchronize" in n], inside
+
+    timers.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        rp.rp_project_ensemble(X[0, :100], R.float(), K=K, log_transform=True)
+    sums = timers.snapshot()["sums"]
+    assert sums["rp.float32_rows"] == 100 and "rp.tensor_core_rows" not in sums

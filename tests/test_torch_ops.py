@@ -80,6 +80,84 @@ def test_ternary_rp_matrix_distribution():
     assert Rall.shape == (500, 60)
 
 
+@pytest.mark.parametrize("G", [1, 3])
+def test_block_projects_with_the_log_inside_the_call(monkeypatch, G):
+    """cluster_block_ensemble hands the raw cells and log_transform to the
+    module's rp_project_ensemble, and the projection is the one of the log
+    taken first and projected without it, bit for bit; on the CPU the
+    operand kernel is not launched."""
+    from sharp_tpu_torch.core import block
+
+    rng = np.random.default_rng(4)
+    K, n_pad, genes, p = 3, 64, 90, 12
+    X = torch.from_numpy(rng.lognormal(size=(G, n_pad, genes)).astype(np.float32))
+    R = trp.ensemble_rp_matrix(5, K, genes, p, device="cpu")
+    mask = torch.ones((G, n_pad), dtype=torch.bool)
+    seen = []
+
+    def spy(*a, **k):
+        seen.append(dict(k))
+        out = trp.rp_project_ensemble(*a, **k)
+        seen[-1]["proj"] = out
+        return out
+
+    monkeypatch.setattr(block, "rp_project_ensemble", spy)
+    before = trp.LAUNCHES["rp_operand"]
+    block.cluster_block_ensemble(X, mask, [n_pad] * G, R, 6, True, K=K, ncand=5, nc_pad=8)
+    assert len(seen) == 1 and seen[0]["log_transform"] is True and seen[0]["K"] == K
+    old = trp.rp_project_ensemble(trp.log2p1(X).reshape(G * n_pad, genes), R, K=K)
+    assert torch.equal(seen[0]["proj"], old)
+    assert trp.LAUNCHES["rp_operand"] == before == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("genes", [90, 96, 27998])
+def test_rp_operand_plain_on_cpu(dtype, genes):
+    """The operand on the CPU is the plain version: log2p1(X).to(dtype) with
+    the genes padded by zero columns to a multiple of 8; the CPU projection
+    with a 16-bit R keeps the float32 route and counts its rows."""
+    from torch.profiler import profile
+
+    from sharp_tpu_torch.utils import timers
+
+    rng = np.random.default_rng(genes)
+    X = torch.from_numpy(rng.lognormal(size=(5, genes)).astype(np.float32))
+    got = trp.rp_operand(X, dtype, True)
+    assert got.dtype == dtype and got.shape == (5, -(-genes // 8) * 8)
+    assert torch.equal(got[:, :genes], trp.log2p1(X).to(dtype))
+    assert torch.equal(trp.rp_operand(X, dtype, False)[:, :genes], X.to(dtype))
+    assert not got[:, genes:].any()
+    R = trp.ensemble_rp_matrix(1, 2, genes, 4, dtype=dtype, device="cpu")
+    timers.reset()
+    with profile():
+        proj = trp.rp_project_ensemble(X, R, K=2, log_transform=True)
+    sums = timers.snapshot()["sums"]
+    assert sums["rp.float32_rows"] == 5 and "rp.tensor_core_rows" not in sums
+    ref = torch.matmul(trp.log2p1(X).to(dtype).float(), R.float()) * torch.tensor(4.0).rsqrt()
+    assert torch.equal(proj, ref.reshape(5, 2, 4).permute(1, 0, 2))
+
+
+def test_padded_rp_rows_made_once_per_matrix():
+    """R's rows padded with zeros to the operand's: one copy for an R while
+    it lives and is not written; a write or another R makes a new one, and
+    the copy goes with its R."""
+    import gc
+
+    R = trp.ensemble_rp_matrix(3, 2, 61, 4, device="cpu")
+    assert trp._padded_rows(R, 61) is R
+    Rp = trp._padded_rows(R, 64)
+    assert Rp.shape == (64, 8) and torch.equal(Rp[:61], R) and not Rp[61:].any()
+    assert trp._padded_rows(R, 64) is Rp
+    R.mul_(2)
+    Rp2 = trp._padded_rows(R, 64)
+    assert Rp2 is not Rp and torch.equal(Rp2[:61], R)
+    other = R.clone()
+    assert trp._padded_rows(other, 64) is not Rp2
+    del R, other, Rp, Rp2
+    gc.collect()
+    assert torch.device("cpu") not in trp._PADDED
+
+
 def test_distances_match_jax_with_pad_tiers():
     X, mask = _features(2, 64, 50, 24, seed=1)
     Z_ref = np.asarray(jax.vmap(lambda x: jdist.standardize_rows(x, jnp.asarray(mask)))(jnp.asarray(X)))
