@@ -329,11 +329,15 @@ def sharp_large(
 
     `R_all` injects the stacked RP matrices (the reference's `rM`),
     `testlog_probe` the testlog draws and `shuffle_perm` the cell
-    permutation (`sharp_tpu_torch.carry`); by default all are drawn from
-    `rN_seed` on `device`.
+    permutation (`sharp_tpu_torch.carry`), which must hold each of 0..n-1
+    once; by default all are drawn from `rN_seed` on `device`.
+
+    `timing["fold_pass"]` holds the dense feed's host seconds over the
+    call's fold groups (`slice_s`: the gather, `transfer_s`: the copy's
+    call), read with no synchronise.
     """
     from sharp_tpu_torch.parallel.mesh import resolve_mesh
-    from sharp_tpu_torch.parallel.sharded import process_folds
+    from sharp_tpu_torch.parallel.sharded import FEED_KEYS, process_folds
 
     timer = timer or StageTimer("large")
     n, genes = X.shape
@@ -349,6 +353,9 @@ def sharp_large(
             perm = np.asarray(torch.as_tensor(shuffle_perm).cpu(), dtype=np.int64)
             if perm.shape != (n,):
                 raise ValueError(f"shuffle_perm has shape {perm.shape}, expected ({n},)")
+            # a repeated or out-of-range index would cluster the wrong cells
+            if perm.min() < 0 or perm.max() >= n or (np.bincount(perm, minlength=n) != 1).any():
+                raise ValueError(f"shuffle_perm is not a permutation of 0..{n - 1}")
         elif n < 1e5:
             gen = shuffle_generator(rN_seed, dev)
             perm = host_read(torch.randperm(n, generator=gen, device=dev), "large.perm").numpy()
@@ -368,8 +375,10 @@ def sharp_large(
         else:
             R_all = R_all.to(dev, dtype)
 
+    feed = dict.fromkeys(FEED_KEYS, 0.0)
     with timer.stage("fold_ensemble"):
-        fold_results = process_folds(X, sizes, block_pad, R_all, cfg, logf, dev, resolve_mesh(cfg, dev), rows=perm)
+        fold_results = process_folds(X, sizes, block_pad, R_all, cfg, logf, dev, resolve_mesh(cfg, dev), rows=perm,
+                                     feed=feed)
 
     with timer.stage("smetac"):
         fres = fuse_folds(
@@ -406,7 +415,7 @@ def sharp_large(
         viE=viE,
         x0=x0_u if cfg.forview else None,
         paras=cfg.as_dict(),
-        timing=timer.as_dict(),
+        timing={**timer.as_dict(), "fold_pass": feed},
         per_member_k=np.stack([fr["k_per"] for fr in fold_results]),
         per_member_maxsil=np.stack([fr["maxsil"] for fr in fold_results]),
         folds=folds_per_cell,

@@ -51,7 +51,7 @@ from sharp_tpu_torch.core.large import summaries_to_host
 from sharp_tpu_torch.ops.linkage import counts_per_problem
 from sharp_tpu_torch.ops.linkage_cuda import shard_scope
 from sharp_tpu_torch.ops.silhouette import SWEEP_CHUNK_BYTES, sweep_bytes
-from sharp_tpu_torch.utils.timers import log, span
+from sharp_tpu_torch.utils.timers import add, log, span, tracing
 
 _CPU_BUDGET = 8 << 30
 
@@ -121,6 +121,8 @@ def _sweep_shape(cfg: SharpConfig) -> dict:
 
 # the parts of the fold pass that SHARP_TPU_FOLD_TIMING=1 adds up
 FOLD_TIMING_KEYS = ("slice_s", "transfer_s", "device_s", "readback_s")
+# the dense feed's host seconds, added up on every call with no synchronise
+FEED_KEYS = ("slice_s", "transfer_s")
 
 
 def _now(timing: Optional[dict]) -> float:
@@ -133,24 +135,43 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing):
-    """Per group: (fold sizes, dense folds on dev, log2 still to apply)."""
+def _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing, feed=None):
+    """Per group: (fold sizes, dense folds on dev, log2 still to apply).
+    `feed` (a dict of `FEED_KEYS`) adds up the host's seconds in the gather
+    and in the copy's call, read without a synchronise. While tracing, the
+    tracer sums the bytes of the live rows gathered (`feed.gathered_bytes`),
+    the bytes copied to dev, pad rows included (`feed.copied_bytes`), and
+    those of them copied from memory that is not page-locked
+    (`feed.pageable_bytes`)."""
     genes = X.shape[1]
     for g0 in range(0, len(sizes), group):
-        t0 = _now(timing)
+        t0 = time.perf_counter()
         with span("fold_pass.slice"):
             gsizes = [int(s) for s in sizes[g0 : g0 + group]]
             Xg = np.zeros((len(gsizes), block_pad, genes), np.float32)
             for gi, sz in enumerate(gsizes):
                 r0 = offsets[g0 + gi]
                 np.take(X, rows[r0 : r0 + sz], axis=0, out=Xg[gi, :sz], mode="clip")
-        t1 = _now(timing)
+        t1 = time.perf_counter()
         with span("fold_pass.transfer"):
-            data = torch.from_numpy(Xg).to(dev)
+            host = torch.from_numpy(Xg)
+            data = host.to(dev)
+            t2 = time.perf_counter()
             if timing is not None:
                 _sync(dev)
                 timing["slice_s"] += t1 - t0
                 timing["transfer_s"] += _now(timing) - t1
+        if feed is not None:
+            feed["slice_s"] += t1 - t0
+            feed["transfer_s"] += t2 - t1
+        if tracing():
+            add("feed.gathered_bytes", sum(gsizes) * genes * Xg.itemsize)
+            add("feed.copied_bytes", Xg.nbytes)
+            if not host.is_pinned():
+                add("feed.pageable_bytes", Xg.nbytes)
+        # held into the next gather, it would keep this group's host buffer
+        # resident beside the next one's
+        del host
         yield gsizes, data, logf
         del data   # this frame's reference: the group goes when the caller drops its own
 
@@ -209,22 +230,23 @@ def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype, ti
 
 def _fold_groups(
     X, sizes, offsets, block_pad, R_all, cfg, logf, dev, group, rows, wire_dtype, indN,
-    ens: Optional[Callable] = None, timing: Optional[dict] = None,
+    ens: Optional[Callable] = None, timing: Optional[dict] = None, feed: Optional[dict] = None,
 ) -> List[dict]:
     """The summaries of the folds `sizes` (fold t starting at cell
     offsets[t] of X, or of `rows`), `group` folds per call on dev. `ens`
     replaces the fold program of a group by the ensemble split. `timing`
     (a dict of `FOLD_TIMING_KEYS`) adds up the parts of the pass, the card
-    synchronised after each."""
+    synchronised after each; `feed` (a dict of `FEED_KEYS`) the dense
+    feed's host seconds, with no synchronise."""
     from sharp_tpu_torch.io.sparse import SparseBlock
 
     if isinstance(X, SparseBlock):
-        feed = _sparse_feed(X, sizes, offsets, group, block_pad, logf, dev, wire_dtype, timing)
+        groups = _sparse_feed(X, sizes, offsets, group, block_pad, logf, dev, wire_dtype, timing)
     else:
-        feed = _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing)
+        groups = _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing, feed)
     static = fold_static_args(cfg)
     results: List[dict] = []
-    for gsizes, Xg, eff_logf in feed:
+    for gsizes, Xg, eff_logf in groups:
         t0 = _now(timing)
         with span("fold_pass.device"):
             masks = (torch.arange(block_pad)[None, :] < torch.tensor(gsizes)[:, None]).to(dev)
@@ -272,6 +294,7 @@ def process_folds_grouped(
     *,
     device="cuda",
     rows: Optional[np.ndarray] = None,
+    feed: Optional[dict] = None,
 ) -> List[dict]:
     """Run the fold program over all folds, `group` folds per call, and
     return per-fold host summaries.
@@ -286,7 +309,8 @@ def process_folds_grouped(
     slicing, the copies to the card, the densify and the fold program, and
     the summaries' readback. Without it a profiler sees the same four parts
     as the spans `sharp.fold_pass.{slice,transfer,device,readback}`, on its
-    own clock and with no synchronise.
+    own clock and with no synchronise. `feed`, a dict of `FEED_KEYS`, adds
+    up the dense feed's host seconds on every call, with no synchronise.
     """
     dev = torch.device(device)
     T = len(sizes)
@@ -302,7 +326,7 @@ def process_folds_grouped(
     timing = (dict.fromkeys(FOLD_TIMING_KEYS, 0.0)
               if os.environ.get("SHARP_TPU_FOLD_TIMING") == "1" else None)
     results = _fold_groups(X, list(sizes), offsets, block_pad, R_all, cfg, logf, dev,
-                           max(1, min(group, T)), rows, wire_dtype, indN, timing=timing)
+                           max(1, min(group, T)), rows, wire_dtype, indN, timing=timing, feed=feed)
     if timing is not None:
         _report_fold_timing(timing)
     return results
@@ -375,6 +399,8 @@ def process_folds_sharded(
     rows: Optional[np.ndarray] = None,
     wire_dtype: str = "float32",
     group: Optional[int] = None,
+    *,
+    feed: Optional[dict] = None,
 ) -> List[dict]:
     """The fold pass over `mesh` (`parallel/mesh.Mesh`): per-fold host
     summaries in fold order, the same as `process_folds_grouped`'s.
@@ -386,7 +412,7 @@ def process_folds_sharded(
     slice, with an "ens" axis). `group=None` sizes each shard's group from
     its share of the memory budget. Like the JAX package's, this pass drops
     `indN_cluster`; `process_folds` sends a call of one fold to the grouped
-    loop, which keeps it.
+    loop, which keeps it. `feed` adds up the shards' dense feed seconds.
     """
     from sharp_tpu_torch.parallel.multihost import block_slice
 
@@ -426,6 +452,8 @@ def process_folds_sharded(
         if d.type == "cuda":
             torch.cuda.current_stream(d).synchronize()
 
+    shard_feeds = [dict.fromkeys(FEED_KEYS, 0.0) for _ in range(n_data)]
+
     def data_shard(d):
         folds = block_slice(T, d, n_data)
         if not folds:
@@ -441,7 +469,7 @@ def process_folds_sharded(
             stack.enter_context(shard_scope((d, 0)))
             out = _fold_groups(
                 X, list(sizes[lo:hi]), offsets[lo:hi + 1], block_pad, R_locals[d][0], cfg, logf,
-                devs[0], max(1, min(group, hi - lo)), rows, wire_dtype, None, ens=ens,
+                devs[0], max(1, min(group, hi - lo)), rows, wire_dtype, None, ens=ens, feed=shard_feeds[d],
             )
             if devs[0].type == "cuda":
                 torch.cuda.current_stream().synchronize()
@@ -449,6 +477,9 @@ def process_folds_sharded(
 
     with concurrent.futures.ThreadPoolExecutor(n_data) as pool:
         parts = list(pool.map(data_shard, range(n_data)))
+    if feed is not None:
+        for k in FEED_KEYS:
+            feed[k] += sum(f[k] for f in shard_feeds)
     log(f"sharded fold pass: {T} folds over {n_data} data shards"
         + (f" x {n_ens} ens shards" if n_ens > 1 else ""))
     return [fr for part in parts for fr in part]
@@ -457,13 +488,15 @@ def process_folds_sharded(
 def process_folds(
     X, sizes: Sequence[int], block_pad: int, R_all: torch.Tensor, cfg: SharpConfig, logf: bool, device,
     mesh=None, rows: Optional[np.ndarray] = None, group: Optional[int] = None, wire_dtype: str = "float32",
+    *, feed: Optional[dict] = None,
 ) -> List[dict]:
     """The fold pass of the large tier and of each streamed block: over
     `mesh` for two or more folds (`process_folds_sharded`), else the grouped
     loop on `device` (`process_folds_grouped`), as the JAX package's
-    `sharp_large` and `_fold_pass` choose."""
+    `sharp_large` and `_fold_pass` choose. `feed`, a dict of `FEED_KEYS`,
+    adds up the dense feed's host seconds."""
     if mesh is not None and len(sizes) > 1:
         return process_folds_sharded(X, sizes, block_pad, R_all, cfg, logf, mesh, rows=rows,
-                                     wire_dtype=wire_dtype, group=group)
+                                     wire_dtype=wire_dtype, group=group, feed=feed)
     return process_folds_grouped(X, sizes, block_pad, R_all, cfg, logf, group, wire_dtype, device=device,
-                                 rows=rows)
+                                 rows=rows, feed=feed)
