@@ -8,11 +8,13 @@ are paid once per group, not once per fold) and one cut-replay launch.
 Every lane of a group is computed as if alone, so the results do not
 depend on the group size, nor on the mesh.
 
-A dense block is gathered into each group on the host and copied over. A
-`SparseBlock` ships each group as CSR triplets and is densified on the
-device (`io/sparse.py`), with log2(1 + x) applied to the values there; a
-worker thread slices the next group into page-locked staging buffers while
-the device runs the current one.
+Both feeds stage the next group on a worker thread while the device runs
+the current one. A dense block is gathered fold by fold into a small set of
+fold-sized host slots, page-locked on a card and reused across calls, and
+each slot is copied without blocking into its lane of the group on the
+device. A `SparseBlock` ships each group as CSR triplets and is densified
+on the device (`io/sparse.py`), with log2(1 + x) applied to the values
+there.
 
 On a mesh (`parallel/mesh.py`) each data shard takes a contiguous slice of
 the folds and runs the same grouped loop on its own host thread, under a
@@ -38,7 +40,9 @@ import concurrent.futures
 import contextlib
 import os
 import sys
+import threading
 import time
+import warnings
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -99,8 +103,9 @@ def auto_group(
     matrices inside a ladder round: 5 x K x block_pad^2 float32), K lanes
     of the candidate sweep's tables (`ops.silhouette.sweep_bytes`, with
     ncand candidates and nc_pad cluster slots), and the dense fold: with
-    the dense feed, the fold and its log2 copy on the device plus the
-    host-staged copy (3 x block_pad x genes float32); with the sparse feed,
+    the dense feed, the fold and its log2 copy on the device plus its lane
+    of the next group, which the feed fills meanwhile (3 x block_pad x
+    genes float32); with the sparse feed,
     the fold densified on the device with log2 applied and the scatter's
     working set (2 x block_pad x genes float32). The sweep's chunked
     scoring (`SWEEP_CHUNK_BYTES`) is held once per group. `device` as in
@@ -135,45 +140,146 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+# the dense feed's host slots: at most this many, and at most this many
+# bytes of them
+_MAX_SLOTS = 4
+_SLOT_BYTES = 1 << 30
+
+
+class _Slots:
+    """Fold-sized (block_pad, genes) float32 host buffers for copies to dev.
+    On a card: page-locked, with the CUDA event after the last copy out of
+    each and the stream the copies run on, kept with the slots so that the
+    caching allocator reuses the group buffers it allocated on it."""
+
+    def __init__(self, block_pad: int, genes: int, dev: torch.device):
+        n = max(2, min(_MAX_SLOTS, _SLOT_BYTES // (block_pad * genes * 4)))
+        self.pinned = dev.type == "cuda"
+        self.bufs = [torch.empty((block_pad, genes), dtype=torch.float32, pin_memory=self.pinned)
+                     for _ in range(n)]
+        self.copied: list = [None] * n
+        self.stream = torch.cuda.Stream(device=dev) if self.pinned else None
+
+
+# (block_pad, genes, device) -> the slot sets no feed holds, kept for the next
+_FREE_SLOTS: dict = {}
+_FREE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _staging(block_pad: int, genes: int, dev: torch.device):
+    """A slot set for one feed, reused across calls: taken from the free
+    sets of its shape and device (made where there is none) and given back
+    after. Free sets of another shape on the device are dropped."""
+    key = (block_pad, genes, dev)
+    with _FREE_LOCK:
+        for k in [k for k in _FREE_SLOTS if k[2] == dev and k != key]:
+            del _FREE_SLOTS[k]
+        free = _FREE_SLOTS.get(key)
+        slots = free.pop() if free else None
+    if slots is None:
+        slots = _Slots(block_pad, genes, dev)
+    try:
+        yield slots
+    finally:
+        with _FREE_LOCK:
+            _FREE_SLOTS.setdefault(key, []).append(slots)
+
+
+def _group_buffer(n: int, block_pad: int, genes: int, dev: torch.device) -> torch.Tensor:
+    """The n folds of a group on dev, which the dense feed fills lane by lane."""
+    return torch.empty((n, block_pad, genes), dtype=torch.float32, device=dev)
+
+
 def _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing, feed=None):
     """Per group: (fold sizes, dense folds on dev, log2 still to apply).
-    `feed` (a dict of `FEED_KEYS`) adds up the host's seconds in the gather
-    and in the copy's call, read without a synchronise. While tracing, the
-    tracer sums the bytes of the live rows gathered (`feed.gathered_bytes`),
-    the bytes copied to dev, pad rows included (`feed.copied_bytes`), and
-    those of them copied from memory that is not page-locked
+
+    A worker thread stages group g + 1 while the caller runs group g: it
+    gathers fold t (`X[rows[offsets[t] : offsets[t] + sizes[t]]]`, pad rows
+    zero) into slot t % S of a `_Slots` set and copies the slot without
+    blocking into its lane of a fresh group buffer on dev. On a card the
+    slots are page-locked, the copies run on a stream of their own, a slot
+    is refilled only after the copy out of it has finished, and the caller's
+    stream, not the host, waits for the group's last copy; at most two
+    group buffers are alive, the one computed and the one filled. With
+    `timing` the parts run in turn and the copies are synchronised.
+
+    `feed` (a dict of `FEED_KEYS`) adds up the worker's host seconds in the
+    gathers and in the copies' calls, read without a synchronise; the span
+    `fold_pass.wait` holds the caller's wait for a group. While tracing,
+    the tracer sums the bytes of the live rows gathered
+    (`feed.gathered_bytes`), the bytes copied to dev, pad rows included
+    (`feed.copied_bytes`), and of those the ones copied from page-locked
+    slots (`feed.pinned_bytes`) and from pageable ones
     (`feed.pageable_bytes`)."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    cuda = dev.type == "cuda"
     genes = X.shape[1]
-    for g0 in range(0, len(sizes), group):
-        t0 = time.perf_counter()
-        with span("fold_pass.slice"):
-            gsizes = [int(s) for s in sizes[g0 : g0 + group]]
-            Xg = np.zeros((len(gsizes), block_pad, genes), np.float32)
-            for gi, sz in enumerate(gsizes):
-                r0 = offsets[g0 + gi]
-                np.take(X, rows[r0 : r0 + sz], axis=0, out=Xg[gi, :sz], mode="clip")
-        t1 = time.perf_counter()
-        with span("fold_pass.transfer"):
-            host = torch.from_numpy(Xg)
-            data = host.to(dev)
-            t2 = time.perf_counter()
-            if timing is not None:
-                _sync(dev)
-                timing["slice_s"] += t1 - t0
-                timing["transfer_s"] += _now(timing) - t1
-        if feed is not None:
-            feed["slice_s"] += t1 - t0
-            feed["transfer_s"] += t2 - t1
-        if tracing():
-            add("feed.gathered_bytes", sum(gsizes) * genes * Xg.itemsize)
-            add("feed.copied_bytes", Xg.nbytes)
-            if not host.is_pinned():
-                add("feed.pageable_bytes", Xg.nbytes)
-        # held into the next gather, it would keep this group's host buffer
-        # resident beside the next one's
-        del host
-        yield gsizes, data, logf
-        del data   # this frame's reference: the group goes when the caller drops its own
+    with warnings.catch_warnings():   # a read-only X is only read
+        warnings.simplefilter("ignore", UserWarning)
+        src = torch.from_numpy(np.ascontiguousarray(X, np.float32))
+    idx = torch.from_numpy(np.ascontiguousarray(rows, np.int64))
+    n_groups = -(-len(sizes) // group)
+
+    def stage(gi, slots):
+        g0 = gi * group
+        gsizes = [int(s) for s in sizes[g0 : g0 + group]]
+        slice_s = transfer_s = 0.0
+        with _on(dev, slots.stream):
+            data = _group_buffer(len(gsizes), block_pad, genes, dev)
+            for j, sz in enumerate(gsizes):
+                s = (g0 + j) % len(slots.bufs)
+                slot = slots.bufs[s]
+                if slots.copied[s] is not None:
+                    slots.copied[s].synchronize()
+                t0 = time.perf_counter()
+                with span("fold_pass.slice"):
+                    r0 = int(offsets[g0 + j])
+                    torch.index_select(src, 0, idx[r0 : r0 + sz], out=slot[:sz])
+                    slot[sz:].zero_()
+                t1 = time.perf_counter()
+                with span("fold_pass.transfer"):
+                    data[j].copy_(slot, non_blocking=True)
+                    if cuda:
+                        slots.copied[s] = torch.cuda.Event()
+                        slots.copied[s].record()
+                slice_s += t1 - t0
+                transfer_s += time.perf_counter() - t1
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record()
+                if timing is not None:
+                    t1 = time.perf_counter()
+                    slots.stream.synchronize()
+                    transfer_s += time.perf_counter() - t1
+        return gsizes, data, ready, slice_s, transfer_s
+
+    with _staging(block_pad, genes, dev) as slots, concurrent.futures.ThreadPoolExecutor(1) as pool:
+        staged = pool.submit(stage, 0, slots)
+        for gi in range(n_groups):
+            with span("fold_pass.wait"):
+                gsizes, data, ready, slice_s, transfer_s = staged.result()
+            # timed, the next group is staged after this one's device part
+            staged = pool.submit(stage, gi + 1, slots) if gi + 1 < n_groups and timing is None else None
+            if cuda:
+                stream = torch.cuda.current_stream(dev)
+                stream.wait_event(ready)
+                data.record_stream(stream)   # not handed out again before the caller's work on it
+            for sums in (feed, timing):
+                if sums is not None:
+                    sums["slice_s"] += slice_s
+                    sums["transfer_s"] += transfer_s
+            if tracing():
+                add("feed.gathered_bytes", sum(gsizes) * genes * 4)
+                add("feed.copied_bytes", data.nbytes)
+                add("feed.pinned_bytes", data.nbytes if slots.pinned else 0)
+                add("feed.pageable_bytes", 0 if slots.pinned else data.nbytes)
+            yield gsizes, data, logf
+            del data   # this frame's reference: the group goes when the caller drops its own
+            if staged is None and gi + 1 < n_groups:
+                staged = pool.submit(stage, gi + 1, slots)
 
 
 def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype, timing):

@@ -1113,3 +1113,103 @@ def test_rp_tracer_counts_rows_by_route(dev):
         rp.rp_project_ensemble(X[0, :100], R.float(), K=K, log_transform=True)
     sums = timers.snapshot()["sums"]
     assert sums["rp.float32_rows"] == 100 and "rp.tensor_core_rows" not in sums
+
+
+# --- the dense feed: last, since a profiled large-tier call followed by an
+# unprofiled fold pass hides kernels from a later profile in the process ---
+
+def _plain_dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing, feed=None):
+    """The dense feed as a plain gather: each group gathered with numpy into
+    a zeroed array and copied to dev from pageable memory."""
+    for g0 in range(0, len(sizes), group):
+        gsizes = [int(s) for s in sizes[g0 : g0 + group]]
+        Xg = np.zeros((len(gsizes), block_pad, X.shape[1]), np.float32)
+        for j, sz in enumerate(gsizes):
+            Xg[j, :sz] = X[rows[offsets[g0 + j] : offsets[g0 + j] + sz]]
+        yield gsizes, torch.from_numpy(Xg).to(dev), logf
+
+
+def test_dense_feed_on_card_equals_plain_gather(dev, monkeypatch):
+    """Fifty groups of four unequal folds through two page-locked slots,
+    each group's copies held back on the copy stream by a sleep: every group
+    on the card is the plain gather's byte for byte, pad rows included, so
+    no slot is refilled before the copy out of it has finished."""
+    from sharp_tpu_torch.parallel import sharded
+
+    monkeypatch.setattr(sharded, "_MAX_SLOTS", 2)
+    monkeypatch.setattr(sharded, "_FREE_SLOTS", {})
+    inner = sharded._group_buffer
+
+    def held_back(*a, **k):
+        data = inner(*a, **k)
+        torch.cuda._sleep(2_000_000)     # on the copy stream, ahead of the group's copies
+        return data
+
+    monkeypatch.setattr(sharded, "_group_buffer", held_back)
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(100, 257, 200).tolist()
+    n = sum(sizes)
+    X = rng.standard_normal((n, 1000)).astype(np.float32)
+    X[::7, 3] = np.nan
+    rows = rng.permutation(n)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    fed = sharded._dense_feed(X, sizes, offsets, 4, 256, rows, True, dev, None)
+    plain = _plain_dense_feed(X, sizes, offsets, 4, 256, rows, True, torch.device("cpu"), None)
+    groups = 0
+    for (gsizes, data, _), (want_sizes, want, _) in zip(fed, plain):
+        assert gsizes == want_sizes and data.is_cuda
+        assert torch.equal(data.cpu().view(torch.int32), want.view(torch.int32))
+        groups += 1
+    assert groups == 50
+    [sets] = sharded._FREE_SLOTS.values()
+    assert [len(s.bufs) for s in sets] == [2] and all(b.is_pinned() for b in sets[0].bufs)
+
+
+def test_dense_feed_on_card_pins_and_keeps_the_answer(dev, monkeypatch):
+    """A large-tier sharp() call on the card in three fold groups: the feed
+    copies from page-locked slots only (the tracer's pinned bytes are all
+    the bytes copied), and the labels, folds, viE and per-member k and max
+    silhouettes are those of the same call fed by a plain gather."""
+    import os
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synth import make_tpm_like
+
+    import sharp_tpu_torch
+    from sharp_tpu_torch.config import resolve_config
+    from sharp_tpu_torch.parallel import sharded
+    from sharp_tpu_torch.utils import timers
+
+    n, genes, K, p = 2000, 400, 4, 32
+    X, _ = make_tpm_like(n_cells=n, n_genes=genes, n_types=5, seed=12)
+    kw = dict(rN_seed=4, ensize_K=K, reduced_ndim=p, prep=False, log_transform=True, base_ncells=400,
+              partition_ncells=200, forview=True)
+    cfg = resolve_config(n, genes, **kw)
+    fold = sharded._fold_bytes(cfg.block_pad, genes, False, K, **sharded._sweep_shape(cfg))
+    monkeypatch.setenv("SHARP_TPU_HBM_BUDGET", str(sharded.SWEEP_CHUNK_BYTES + 4 * fold + fold // 2))
+    rng = np.random.default_rng(2)
+    R = (rng.random((genes, K * p)) < 0.05).astype(np.float32) * rng.choice([-1.0, 1.0], (genes, K * p))
+    draws = dict(rM=R, shuffle_perm=torch.from_numpy(rng.permutation(n)))
+    lanes, inner = [], sharded.fold_program
+
+    def counted(Xg, *a, **k):
+        lanes.append(Xg.shape[0])
+        return inner(Xg, *a, **k)
+
+    monkeypatch.setattr(sharded, "fold_program", counted)
+    timers.reset()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        a = sharp_tpu_torch.sharp(X, device=dev, **draws, **kw)
+        torch.cuda.synchronize()
+    sums = timers.snapshot()["sums"]
+    timers.reset()
+    assert lanes == [4, 4, 2]
+    assert sums["feed.pageable_bytes"] == 0
+    assert sums["feed.pinned_bytes"] == sums["feed.copied_bytes"] == 10 * cfg.block_pad * genes * 4
+    monkeypatch.setattr(sharded, "_dense_feed", _plain_dense_feed)
+    b = sharp_tpu_torch.sharp(X, device=dev, **draws, **kw)
+    for key in ("pred_clusters", "folds", "viE", "per_member_k", "per_member_maxsil"):
+        np.testing.assert_array_equal(getattr(a, key), getattr(b, key), err_msg=key)

@@ -6,11 +6,13 @@ handed in from a seed. Final labels, folds and each member's k exact; the
 ensemble-mean projection (`viE`) and the members' max silhouettes within
 1e-5. The fold groups (one of 6 folds, or 4 + 2 under a memory budget)
 do not change the answer, nor do two data shards of a CPU mesh. Also: the comparison fails for a shifted
-permutation; a traced call counts the dense feed's bytes; the feed drops
-each group's host buffer before the next gather; a shuffle that is not a
-permutation is refused.
+permutation; a traced call counts the dense feed's bytes; the dense feed's
+groups equal a plain gather into zeroed arrays bit for bit, through a fixed
+set of reused host slots and at most two group buffers at once; a shuffle
+that is not a permutation is refused.
 """
 
+import sys
 import weakref
 
 import numpy as np
@@ -122,8 +124,9 @@ def test_shifted_perm_fails_the_comparison(case, shifted):
 
 def test_traced_call_counts_the_dense_feed(inputs):
     """Under a profiler the feed counts the live rows gathered, the bytes
-    copied (pad rows in) and, of those, the pageable ones; the result
-    carries the feed's host seconds beside unchanged stages."""
+    copied (pad rows in) and, of those, the ones from page-locked and from
+    pageable slots: on the CPU no slot is page-locked. The result carries
+    the feed's host seconds beside unchanged stages."""
     X, R, _ = inputs
     n = 2 * FOLD                        # two folds keep the profiled call short
     knobs = {**KNOBS, "base_ncells": n}
@@ -135,6 +138,7 @@ def test_traced_call_counts_the_dense_feed(inputs):
     folds = n // FOLD
     assert sums["feed.gathered_bytes"] == n * GENES * 4
     assert sums["feed.copied_bytes"] == folds * PAD * GENES * 4
+    assert sums["feed.pinned_bytes"] == 0
     assert sums["feed.pageable_bytes"] == sums["feed.copied_bytes"]
     assert [s["stage"] for s in res.timing["stages"]] == STAGES
     assert set(res.timing["fold_pass"]) == {"slice_s", "transfer_s"}
@@ -152,23 +156,115 @@ def test_shuffle_perm_must_be_a_permutation(inputs, bad):
         sharp_tpu_torch.sharp(X, rM=R, shuffle_perm=torch.from_numpy(perm), **KNOBS)
 
 
-def test_dense_feed_drops_each_group_before_the_next_gather(monkeypatch):
-    """The feed keeps no reference to a group's host buffer into the next
-    group's gather (two full groups' buffers would be resident at once)."""
-    X = np.arange(12 * 5, dtype=np.float32).reshape(12, 5)
-    sizes, offsets = [4, 4, 4], np.array([0, 4, 8, 12])
-    feed = sharded._dense_feed(X, sizes, offsets, 1, 8, np.arange(12), True, torch.device("cpu"), None)
-    gsizes, data, _ = next(feed)
-    first = weakref.ref(data)
-    del data
-    alive = []
-    inner = np.take
+# unequal folds, the last one short: 19 folds, so groups of 2 and 16 end short
+FEED_SIZES = [12, 15, 13, 16, 14] * 3 + [16, 11, 14, 5]
+FEED_PAD, FEED_GENES = 16, 37
 
-    def take(*a, **k):
-        alive.append(first() is not None)
-        return inner(*a, **k)
 
-    monkeypatch.setattr(sharded.np, "take", take)
-    gsizes, data, _ = next(feed)
-    assert alive == [False] and gsizes == [4]
-    np.testing.assert_array_equal(data[0, :4].numpy(), X[4:8])
+def _feed_matrix(n, seed):
+    """Float32 cells with NaNs and negative zeros, so that equal bytes is
+    more than equal values."""
+    X = np.random.default_rng(seed).standard_normal((n, FEED_GENES)).astype(np.float32)
+    X[::7, 3] = np.nan
+    X[::5, 4] = -0.0
+    return X
+
+
+def _plain_groups(X, sizes, group, rows):
+    """Each group gathered with numpy into a zeroed (G, pad, genes) array."""
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    out = []
+    for g0 in range(0, len(sizes), group):
+        Xg = np.zeros((len(sizes[g0 : g0 + group]), FEED_PAD, X.shape[1]), np.float32)
+        for j, sz in enumerate(sizes[g0 : g0 + group]):
+            Xg[j, :sz] = X[rows[offsets[g0 + j] : offsets[g0 + j] + sz]]
+        out.append(Xg)
+    return out
+
+
+def _fed_groups(X, sizes, group, rows):
+    """The dense feed's groups, copied out as `_fold_groups` would use them,
+    with a short thread switch interval."""
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        feed = sharded._dense_feed(X, sizes, offsets, group, FEED_PAD, rows, True, torch.device("cpu"), None)
+        return [(gsizes, data.numpy().copy()) for gsizes, data, _ in feed]
+    finally:
+        sys.setswitchinterval(old)
+
+
+def _assert_same_bytes(got, want):
+    assert [g.shape for _, g in got] == [w.shape for w in want]
+    for (_, g), w in zip(got, want):
+        assert g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("order", ["own", "permuted"])
+@pytest.mark.parametrize("group", [1, 2, 16])
+def test_dense_feed_equals_plain_gather(group, order):
+    """The pipelined feed's groups are a plain gather into zeroed arrays,
+    byte for byte and pad rows included: unequal folds with a short last
+    one, in the block's own order or permuted, in groups of 1, 2 and 16
+    (the last group short)."""
+    n = sum(FEED_SIZES)
+    X = _feed_matrix(n, 3)
+    rows = np.arange(n) if order == "own" else np.random.default_rng(4).permutation(n)
+    got = _fed_groups(X, FEED_SIZES, group, rows)
+    _assert_same_bytes(got, _plain_groups(X, FEED_SIZES, group, rows))
+    assert [g for g, _ in got] == [FEED_SIZES[g0 : g0 + group] for g0 in range(0, len(FEED_SIZES), group)]
+
+
+@pytest.mark.parametrize("group", [1, 3])
+def test_dense_feed_reuses_its_slots_without_stale_rows(monkeypatch, group):
+    """Two calls on different matrices go through the same slot set; the
+    second call's shorter folds leave no row of the first in the pad."""
+    monkeypatch.setattr(sharded, "_FREE_SLOTS", {})
+    key = (FEED_PAD, FEED_GENES, torch.device("cpu"))
+    X1 = _feed_matrix(6 * FEED_PAD, 5)
+    full, own = [FEED_PAD] * 6, np.arange(len(X1))
+    _assert_same_bytes(_fed_groups(X1, full, group, own), _plain_groups(X1, full, group, own))
+    [slots] = sharded._FREE_SLOTS[key]
+    short = [9, 5, 12, 3, 7, 1]
+    X2 = _feed_matrix(sum(short), 6)
+    rows = np.random.default_rng(7).permutation(len(X2))
+    _assert_same_bytes(_fed_groups(X2, short, group, rows), _plain_groups(X2, short, group, rows))
+    assert sharded._FREE_SLOTS[key] == [slots]
+
+
+@pytest.mark.parametrize("n_groups", [1, 4, 12])
+def test_dense_feed_staging_stays_bounded(monkeypatch, n_groups):
+    """Whatever the number of groups, the feed stages through one fixed
+    set of host slots, made once and reused by the next call, and no more
+    than two group buffers are alive at once: the one the caller holds and
+    the one the worker fills."""
+    monkeypatch.setattr(sharded, "_FREE_SLOTS", {})
+    made, buffers, alive_at_alloc = [], [], []
+
+    class Counted(sharded._Slots):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(len(self.bufs))
+
+    inner = sharded._group_buffer
+
+    def tracked(*a, **k):
+        data = inner(*a, **k)
+        buffers.append(weakref.ref(data))
+        alive_at_alloc.append(sum(b() is not None for b in buffers))
+        return data
+
+    monkeypatch.setattr(sharded, "_Slots", Counted)
+    monkeypatch.setattr(sharded, "_group_buffer", tracked)
+    sizes = [FEED_PAD - 1] * (2 * n_groups)
+    X = _feed_matrix(sum(sizes), 8)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    for _ in range(2):
+        for gsizes, data, _ in sharded._dense_feed(X, sizes, offsets, 2, FEED_PAD, np.arange(len(X)), True,
+                                                   torch.device("cpu"), None):
+            assert sum(b() is not None for b in buffers) <= 2
+            del data
+    assert made == [sharded._MAX_SLOTS]
+    assert len(buffers) == 2 * n_groups and max(alive_at_alloc) <= 2
+    assert all(b() is None for b in buffers)
