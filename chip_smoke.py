@@ -84,7 +84,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               tail in the tail kernel; serial Ward took every fold's wMetaC
               problem and sMetaC's (ops.linkage_cuda.PROBLEMS) in at most one
               wMetaC launch per fold group and one sMetaC launch; a cut
-              replay per linkage. Then the same block with
+              replay per linkage; and in each fold-program call the round
+              kernel at each ladder level (2048, 1024, 512) and no other,
+              the tail kernel once and serial Ward once, on the group's
+              wMetaC problems (one a lane). Then the same block with
               linkage_backend="rnn_bf16", one more f32 run with the parts of
               fold_ensemble synchronised and timed (the group's selection,
               one select_cut, and its wMetaC among them), and one under
@@ -149,22 +152,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               (b)'s; both report its cluster count; ARI >= 0.95 with at most
               57 clusters; each process launched every kernel its two blocks'
               folds need, as in (a) and (b), with its fuses besides.
-  9. bench    bench_torch.py's compute path in this process, after phase 8
-              (c), at its full size: 1,306,127 cells x 27,998 genes in 26
-              blocks generated on the card, 654 folds in 41 groups of 16 at
-              n_pad 2048, the per-block sMetaC fuses in one batched call and
-              the global fuse over the 26 block summaries. Gates: the
-              bench's own (the ladder and serial Ward give valid merge
-              sequences on the card before timing; ARI >= 0.80 and 12-57
-              clusters for 38 planted types); in every fold group of the
-              timed fold pass the round kernel at each ladder level (2048,
-              1024, 512), the tail kernel once and serial Ward once for the
-              group's 16 wMetaC problems; a cut replay per linkage in every
-              timed part; the global fuse's sMetaC tensors on the card and a
-              linkage kernel launched in its window. Prints the timed wall
-              and its parts (fold pass, block fuse, global fuse), the
-              min/median/max per fold group and per block, the fuse shapes
-              and the launches.
+  9. none     (the number of the bench's compute path, which is gone: the
+              benchmark's cell flagship_1p3m.device_fed runs that solution)
  10. surface  the JAX package's knobs and entry points beside the main
               path. (a), (b), (d) right after phase 5 (b); (c) after phase 8 (c).
               (a) The flagship block through sharp() under
@@ -198,9 +187,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               gives indN_cluster=None's result, with has_indN=True every
               member's k is 6.
  11. multihost26  scripts/multihost_26block_torch.py's configurations, after
-              phase 9, through the script's functions: two processes on this
-              card (gloo on a free localhost port, LOCAL_WORLD_SIZE=2), 13 of
-              the 26 SBLK blocks each. (a) Mechanics: 26 x 2,000 cells x 400
+              phase 10 (c), through the script's functions: two processes on
+              this card (gloo on a free localhost port, LOCAL_WORLD_SIZE=2),
+              13 of the 26 SBLK blocks each. (a) Mechanics: 26 x 2,000 cells x 400
               genes, n_cells declared 1,306,127 (the widened cluster range
               and all-gather budget): the processes agree on the cluster
               count, 26 manifests of one fingerprint, a resume run from them
@@ -246,17 +235,16 @@ The last line of standard output is {"ok": true, "device": {...}}; the line
 before it holds the card's name and power limit as nvidia-smi prints them,
 and the one before that the kernels' JSON record: per kernel its launches
 in the run of phase 6 (b) and the problems they took (and, under
-launches_by_path, its launches in the flagship run
-of phase 5 (b), in phase 7 (a)'s gethclust calls, in phase 8 (b), the
-flagship block over two shards, in phase 9's whole run, in phase 10 (a),
-in phase 10 (d)'s entry-point calls, by configuration and process in
-phase 11's cold runs and by script in phase 12; and under wide_shapes its
-phase 12 shapes), its largest difference from the
-plain version, its time
-per call (and device_ms, the kernel alone), the plain version's, its bound
-and what bounds it. The ladder round's wrapper launches two kernels, each
-listed: rnn_pairs (the pairs' selection and fresh rows) and rnn_round (the
-scatter and the next row cache); their plain version is the plain round.
+launches_by_path, its launches in the flagship run of phase 5 (b), in
+phase 7 (a)'s gethclust calls, in phase 8 (b), the flagship block over two
+shards, in phase 10 (a), in phase 10 (d)'s entry-point calls, by
+configuration and process in phase 11's cold runs and by script in phase
+12; and under wide_shapes its phase 12 shapes), its largest difference
+from the plain version, its time per call (and device_ms, the kernel
+alone), the plain version's, its bound and what bounds it. The ladder
+round's wrapper launches two kernels, each listed: rnn_pairs (the pairs'
+selection and fresh rows) and rnn_round (the scatter and the next row
+cache); their plain version is the plain round.
 No single PyTorch call
 computes any of the linkage kernels' functions, so their library_ms is
 null; the RP operand's entry carries the float32 torch.matmul of the same
@@ -1394,6 +1382,42 @@ def _large_a_input(ensize_K=None):
     return X, y, draws
 
 
+def _watch_fold_groups(fn):
+    """fn() with each fold-program call of the large tier's fold pass
+    watched -> (fn's result, per call: its lanes, the ladder levels of its
+    round launches, their number, and its launches and problems by
+    kernel)."""
+    from sharp_tpu_torch.ops import linkage_cuda
+    from sharp_tpu_torch.parallel import sharded
+
+    calls, levels = [], [None]
+    real_round, real_program = linkage_cuda.rnn_round_kernel, sharded.fold_program
+
+    def round_spy(ladder, *a):
+        if levels[0] is not None:
+            levels[0].append(ladder.D.shape[-1])
+        return real_round(ladder, *a)
+
+    def program_spy(Xg, *a, **k):
+        levels[0] = []
+        launches, problems = dict(linkage_cuda.LAUNCHES), dict(linkage_cuda.PROBLEMS)
+        try:
+            return real_program(Xg, *a, **k)
+        finally:
+            calls.append(dict(
+                lanes=int(Xg.shape[0]), levels=sorted(set(levels[0])), rounds=len(levels[0]),
+                launches={k: n - launches[k] for k, n in linkage_cuda.LAUNCHES.items()},
+                problems={k: n - problems[k] for k, n in linkage_cuda.PROBLEMS.items()},
+            ))
+            levels[0] = None
+
+    linkage_cuda.rnn_round_kernel, sharded.fold_program = round_spy, program_spy
+    try:
+        return fn(), calls
+    finally:
+        linkage_cuda.rnn_round_kernel, sharded.fold_program = real_round, real_program
+
+
 def phase_large(dev, record, Xbig, ybig):
     import torch
 
@@ -1435,7 +1459,8 @@ def phase_large(dev, record, Xbig, ybig):
     runs = {}
     groups = math.ceil(T / GROUP)
     for backend in ("auto", "rnn_bf16"):
-        res, wall, counts, problems, routes = _run_counted(Xbig, device=dev, linkage_backend=backend, **SEED_KW)
+        (res, wall, counts, problems, routes), calls = _watch_fold_groups(
+            lambda: _run_counted(Xbig, device=dev, linkage_backend=backend, **SEED_KW))
         score = ari(ybig, res.pred_clusters)
         stages = _stages(res)
         runs[backend] = dict(
@@ -1470,6 +1495,20 @@ def phase_large(dev, record, Xbig, ybig):
                 raise AssertionError(f"flagship: a linkage went without its cut replay: {counts}")
             if routes["cutree"]["serial"]:
                 raise AssertionError(f"flagship: cut-replay problems took the serial route: {routes}")
+            # each fold group: rounds at the three levels, one tail, one
+            # serial Ward launch for its lanes' wMetaC problems, a cut
+            # replay per linkage
+            print(f"[large] flagship_50000x27998 fold groups (lanes, levels, rounds): "
+                  f"{[(c['lanes'], c['levels'], c['rounds']) for c in calls]}", flush=True)
+            if not calls:
+                raise AssertionError("flagship: no fold-program call was seen")
+            for g, c in enumerate(calls):
+                lc, pc = c["launches"], c["problems"]
+                if (c["levels"] != [512, 1024, 2048] or lc["rnn_round"] != c["rounds"] or lc["rnn_tail"] != 1
+                        or lc["ward_serial"] != 1 or pc["ward_serial"] != c["lanes"]
+                        or lc["cutree"] < lc["ward_serial"] + lc["rnn_tail"]):
+                    raise AssertionError(f"flagship: fold group {g} did not launch its kernels as it should: {c}")
+            runs[backend]["fold_groups"] = calls
 
     # (c) two more f32 runs: the fold program's parts timed, and the host
     # reads of one call
@@ -2454,110 +2493,8 @@ def phase_surface_codec(record, flag6):
     record.setdefault("surface", {})["codec"] = row
 
 
-# --- the bench's compute path ------------------------------------------------
-
-
-def phase_bench(dev, record):
-    """Phase 9: bench_torch.py's compute path in this process at its full
-    size (1,306,127 cells in 26 blocks, 654 folds in 41 groups of 16 at
-    n_pad 2048, the per-block fuses and the global fuse), with its own
-    gates (the parity pre-check; ARI >= 0.80 and 12-57 clusters) and
-    these: in every fold group of the timed fold pass the round kernel at
-    each ladder level (2048, 1024, 512), the tail kernel once and serial
-    Ward once for the group's 16 wMetaC problems; a cut replay per linkage
-    in every timed part; the global fuse's sMetaC tensors on the card and a
-    linkage kernel launched in its window. Returns the launches of the
-    whole run (pre-check, warm-up and stages included)."""
-    import torch
-
-    import bench_torch
-    from sharp_tpu_torch.core import fold
-    from sharp_tpu_torch.ops import linkage_cuda
-    from sharp_tpu_torch.parallel import streaming
-
-    env = bench_torch._bench_env()
-    if env["n_cells"] != 1306127 or len(env["blocks"]) != 26:
-        raise AssertionError(f"bench: the workload is not the default one (SHARP_BENCH_* set?): {env}")
-    torch.cuda.empty_cache()
-    # the ladder levels of the round launches inside each fold-program
-    # call, and the devices of the global fuse's sMetaC tensors
-    calls, current, global_devices = [], [None], []
-    real_round, real_program, real_smetac = linkage_cuda.rnn_round_kernel, fold.fold_program, streaming.smetac
-
-    def round_spy(ladder, *a):
-        if current[0] is not None:
-            current[0].append(ladder.D.shape[-1])
-        return real_round(ladder, *a)
-
-    def program_spy(*a, **k):
-        current[0] = []
-        try:
-            return real_program(*a, **k)
-        finally:
-            calls.append(current[0])
-            current[0] = None
-
-    def smetac_spy(cents, valid, *a, **k):
-        out = real_smetac(cents, valid, *a, **k)
-        global_devices.append(sorted({cents.device.type, valid.device.type, out.tf.device.type}))
-        return out
-
-    linkage_cuda.rnn_round_kernel, fold.fold_program, streaming.smetac = round_spy, program_spy, smetac_spy
-    try:
-        for counter in (linkage_cuda.LAUNCHES, linkage_cuda.PROBLEMS):
-            counter.update(dict.fromkeys(counter, 0))
-        t0 = time.perf_counter()
-        line, msgs, rc, rec = bench_torch.compute_path(env, dev)
-        wall = time.perf_counter() - t0
-        launches, problems = dict(linkage_cuda.LAUNCHES), dict(linkage_cuda.PROBLEMS)
-    finally:
-        linkage_cuda.rnn_round_kernel, fold.fold_program, streaming.smetac = real_round, real_program, real_smetac
-    d = line["detail"]
-    if rc != 0:
-        raise AssertionError(f"bench: exit code {rc}: {msgs}; {json.dumps(d)[:2000]}")
-    print(
-        f"[bench] compute path, {d['n_cells']} cells x {d['n_genes']} genes, {d['n_blocks']} blocks, {d['n_folds']} "
-        f"folds: {line['value']:.1f} cells/s, ARI {d['ari_vs_planted_types']:.4f}, {d['n_clusters_found']} clusters; "
-        f"timed {d['total_seconds']:.3f} s = fold pass {d['fold_pass_seconds']:.3f} + block fuse "
-        f"{d['block_fuse_seconds']:.3f} + global fuse {d['global_fuse_seconds']:.3f}; wall of the run {wall:.1f} s "
-        f"(warm-up {d['compile_seconds']:.1f} s, generation {d['datagen_seconds_untimed']:.1f} s); linkage "
-        f"{d['linkage_backend']}",
-        flush=True,
-    )
-    print(f"[bench] per fold group (s): {json.dumps(d['fold_group_seconds'])}; per block, fused alone (s): "
-          f"{json.dumps(d['block_fuse_each_seconds_untimed'])}", flush=True)
-    print(f"[bench] block fuses {json.dumps(d['block_fuses'])}; global fuse {json.dumps(d['global_fuse'])}",
-          flush=True)
-    print(f"[bench] launches of the timed parts {json.dumps(d['launches'])}, problems {json.dumps(d['problems'])}; "
-          f"of the whole run {launches}; stages {json.dumps(d.get('stages'))}", flush=True)
-
-    groups = -(-d["n_folds"] // d["fold_group_size"])
-    group_calls = calls[-groups:]
-    for g, (levels, lc, pc) in enumerate(zip(group_calls, rec["group_launches"], rec["group_problems"])):
-        if sorted(set(levels)) != [512, 1024, 2048] or lc["rnn_round"] != len(levels):
-            raise AssertionError(f"bench: fold group {g} ran its rounds at levels {sorted(set(levels))} "
-                                 f"({lc['rnn_round']} launches)")
-        if lc["rnn_tail"] != 1 or lc["ward_serial"] != 1 or pc["ward_serial"] != d["fold_group_size"]:
-            raise AssertionError(f"bench: fold group {g}: launches {lc}, problems {pc}")
-        if lc["cutree"] < lc["ward_serial"] + lc["rnn_tail"]:
-            raise AssertionError(f"bench: fold group {g}: a linkage went without its cut replay: {lc}")
-    for part, lc in d["launches"].items():
-        if lc["cutree"] < lc["ward_serial"] + lc["rnn_tail"]:
-            raise AssertionError(f"bench: {part}: a linkage went without its cut replay: {lc}")
-    glc = d["launches"]["global_fuse"]
-    if not global_devices or any(devs != ["cuda"] for devs in global_devices) or (
-        glc["ward_serial"] + glc["rnn_tail"] + glc["rnn_round"] < 1
-    ):
-        raise AssertionError(f"bench: the global fuse did not run on the card: tensors on {global_devices}, "
-                             f"launches {glc}")
-    record["bench"] = dict(line=line, wall_s=wall, launches=launches, problems=problems, **rec,
-                           group_round_levels=[sorted(set(c)) for c in group_calls],
-                           global_fuse_devices=global_devices)
-    return launches
-
-
 def phase_multihost26(record):
-    """Phase 11, after phase 9: scripts/multihost_26block_torch.py's three
+    """Phase 11, after phase 10 (c): scripts/multihost_26block_torch.py's three
     configurations on this card through the script's functions and gates,
     two processes of 13 blocks each (gloo on a free localhost port,
     LOCAL_WORLD_SIZE=2): (a) mechanics, (b) quality, (c) the flagship's 26
@@ -2753,7 +2690,6 @@ def main() -> int:
         phase_surface_codec(record, flag6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    bench_counts = phase_bench(dev, record)
     mh26_counts = phase_multihost26(record)
     script_counts, wide = phase_scripts(dev, record)
     for row, key, fn, kernel, label in _DEFERRED:
@@ -2789,11 +2725,10 @@ def main() -> int:
         # launches: sharp_unlimited over the 4 flagship blocks (problems: the
         # problems or lanes those launches took); launches_by_path adds the
         # large tier's flagship run, phase 7 (a)'s gethclust calls, the
-        # flagship block over two shards, the bench's compute path,
-        # phase 10 (a)'s flagship run at group 4, phase 10 (d)'s
-        # entry-point calls, phase 11's cold runs (by configuration, one
-        # count a process) and phase 12's scripts (by script); wide_shapes:
-        # phase 12's new shapes of the kernel.
+        # flagship block over two shards, phase 10 (a)'s flagship run at
+        # group 4, phase 10 (d)'s entry-point calls, phase 11's cold runs
+        # (by configuration, one count a process) and phase 12's scripts (by
+        # script); wide_shapes: phase 12's new shapes of the kernel.
         # ms: one call through the wrapper (CUDA events); device_ms: the
         # kernel alone (torch.profiler), null where not measured. The round's
         # wrapper launches both of its kernels: rnn_round's ms is the whole
@@ -2807,7 +2742,7 @@ def main() -> int:
             "library_ms": None, "device_ms": device_ms,
             "launches_by_path": {"large": large_counts[name], "unlimited": unl_counts[name],
                                  "analysis": analysis_counts[name], "parallel": par_counts[name],
-                                 "bench": bench_counts[name], "surface": surface_counts[name],
+                                 "surface": surface_counts[name],
                                  "phase 10 (d)": jit_counts[name], "multihost26": mh26_counts[name],
                                  "scripts": {k: c[name] for k, c in script_counts.items()}},
             "wide_shapes": wide_shapes,

@@ -49,21 +49,10 @@ from sharp_tpu_torch.analysis import percluster as tperc
 from sharp_tpu_torch.io import rdata as trdata
 from sharp_tpu_torch.ops import select as tsel
 from sharp_tpu_torch.types import SharpResult
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the layout after 10 t-SNE iterations, relative to its largest coordinate
 TSNE_TOL = 1e-2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread in this module, restored after it: the t-SNE
-    loop and the plain loops here are thousands of small tensor operations,
-    and under the suite's parallel workers a thread pool per operation
-    oversubscribes the cores (the CLI's embed took 169 s instead of 3)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _planted(n, D, C, seed, zeros=0.4):

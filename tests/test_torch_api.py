@@ -14,6 +14,7 @@ import torch
 import sharp_tpu_torch
 from sharp_tpu_torch import carry
 from tests.synth import make_tpm_like
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -102,6 +103,32 @@ def test_port_source_imports_nothing_of_the_jax_package():
     plotting = os.path.join(REPO, "sharp_tpu_torch", "analysis", "plotting.py")
     assert [p for p in paths if mpl.search(open(p).read())] == [plotting]
     assert not re.search(r"^(import|from) matplotlib", open(plotting).read(), re.M)
+
+
+def test_port_cpu_tests_run_on_one_torch_thread():
+    """Every test file of the port that imports torch imports the one
+    shared one-thread fixture (tests/torch_threads.py), except the card's
+    tests and the surface scan, which run no CPU torch; and no test file
+    carries a fixture of its own that sets one thread (a line that hands
+    the call to a subprocess as a string is not one)."""
+    import glob
+    import re
+
+    tests = os.path.join(REPO, "tests")
+    uses_torch = re.compile(r"^(import torch\b|from torch[ .])", re.M)
+    guard = re.compile(r"^from (tests\.)?torch_threads import one_torch_thread\b", re.M)
+    own = re.compile(r"^\s+torch\.set_num_threads\(1\)", re.M)
+    exempt = {"test_torch_cuda.py", "test_torch_surface.py"}
+    unguarded, private = [], []
+    for path in sorted(glob.glob(os.path.join(tests, "test_torch_*.py"))):
+        src, name = open(path).read(), os.path.basename(path)
+        if uses_torch.search(src) and name not in exempt and not guard.search(src):
+            unguarded.append(name)
+        if own.search(src):
+            private.append(name)
+    assert not unguarded, unguarded
+    assert not private, private
+    assert len(own.findall(open(os.path.join(tests, "torch_threads.py")).read())) == 1
 
 
 def test_lazy_exports_match_the_jax_package():

@@ -40,16 +40,9 @@ from sharp_tpu_torch.ops import select as tsel
 from sharp_tpu_torch.ops import silhouette as tsil
 from tests.synth import make_tpm_like
 from tests.test_large import _fake_fold_results
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_PAD, P = 128, 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _replicas(seed, k=12, reps=6):

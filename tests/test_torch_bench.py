@@ -1,20 +1,20 @@
-"""bench_torch.py's compute path and `sharp_unlimited` at the bench's
-declared size, against the JAX package on the CPU, and the bench's pure
-parts.
+"""The atlas solution that the benchmark's `flagship_1p3m.device_fed`
+times, and `sharp_unlimited` at the atlas's declared size, against the JAX
+package on the CPU, and the pure parts of bench_torch.py.
 
-The compute path: three blocks (600 + 600 + 700 cells x 200 genes, folds
-of 250 at n_pad 256, K=3, p=16) from numpy seed data go through
-`bench_torch`'s fold pass (groups of 4 folds, the last padded, as the
-bench pads its last group), its batched block fuses and its global fuse,
-and through the composition of JAX functions that bench.py runs
-(:249-445): `jax.vmap` of `core/fold.fold_program` per group,
-`summaries_to_host`, `fuse_blocks`, `parallel/streaming.global_block_fuse`
-and `finalize_labels`. One numpy RP matrix in bf16, as the bench's, goes
-to both. Each case runs twice: with `cfg.n_cells` the real 1,900 cells
-and the declared 1,306,127, where smetac_range widens every fuse to minN
-26 and maxN 262, so that blocks of fewer clusters take the floor's clamp
-(`core/large.py:_smetac_block_shapes`). Labels are integers: the per-block
-fused labels and the final labels must be identical.
+The atlas solution: three blocks (600 + 600 + 700 cells x 200 genes, folds
+of 250 at n_pad 256, K=3, p=16) from numpy seed data go through the port's
+functions in the order `perfbench/traffic/device_fed.py` runs them
+(`core/fold.fold_program` over groups of 4 folds, the last group's lanes
+padded, `core/large.summaries_to_host`, one `fuse_blocks` over all blocks,
+`parallel/streaming.global_block_fuse` and `finalize_labels`), and through
+the same composition of JAX functions (`jax.vmap` of the fold program per
+group). One numpy RP matrix in bf16 goes to both. Each case runs twice:
+with `cfg.n_cells` the real 1,900 cells and the declared 1,306,127, where
+smetac_range widens every fuse to minN 26 and maxN 262, so that blocks of
+fewer clusters take the floor's clamp (`core/large.py:_smetac_block_shapes`).
+Labels are integers: the per-block fused labels and the final labels must
+be identical.
 
 One torch thread; the file takes about a minute alone.
 """
@@ -34,30 +34,26 @@ from sharp_tpu.core import fold as jfold
 from sharp_tpu.core import large as jlarge
 from sharp_tpu.types import finalize_labels as j_finalize_labels
 from sharp_tpu_torch import sharp_unlimited
-from sharp_tpu_torch.config import pad_dim
+from sharp_tpu_torch.config import pad_dim, resolve_config
+from sharp_tpu_torch.core import large as tlarge
+from sharp_tpu_torch.core.fold import fold_program, fold_static_args
 from sharp_tpu_torch.io.blocks import save_blocks
 from sharp_tpu_torch.parallel import streaming
+from sharp_tpu_torch.types import finalize_labels
 from tests.synth import make_tpm_like
 from tests.torch_mh_worker import shared_rp
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCKS, GENES, FOLD, K, P, GROUP = [600, 600, 700], 200, 250, 3, 16, 4
 DECLARED = 1306127
 CPU = torch.device("cpu")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def bench_data():
     X, y = make_tpm_like(n_cells=sum(BLOCKS), n_genes=GENES, n_types=5, seed=23)
     R = shared_rp(K, GENES, P)
-    plan = bench_torch.fold_plan(BLOCKS, FOLD)
+    plan = [(bi, sz) for bi, bn in enumerate(BLOCKS) for sz in tlarge.fold_sizes(bn, FOLD)]
     starts = np.concatenate([[0], np.cumsum([sz for _, sz in plan])])
     B = pad_dim(max(sz for _, sz in plan))
 
@@ -75,12 +71,8 @@ def bench_data():
     return dict(X=X, y=y, R=R, plan=plan, B=B, group=group)
 
 
-def _env(n_cells):
-    return dict(n_cells=n_cells, n_genes=GENES, n_types=5, K=K, p=P, fold=FOLD, min_ari=0.8, blocks=BLOCKS)
-
-
 def _jax_composition(d, n_cells):
-    """bench.py's composition of JAX functions over the same folds."""
+    """The JAX package's composition over the same folds."""
     cfg = j_resolve_config(n_cells, GENES, ensize_K=K, reduced_ndim=P, partition_ncells=FOLD, rN_seed=7,
                            dtype_compute="bfloat16", forview=False)
     static = jfold.fold_static_args(cfg)
@@ -111,23 +103,48 @@ def _jax_composition(d, n_cells):
     return fused, j_finalize_labels(raw.astype(np.int32), merge_tiny=True)
 
 
+def _port_solution(d, n_cells):
+    """The port's atlas solution over the folds, in the order
+    `device_fed` runs it -> (block fold summaries, fused blocks, final
+    labels, planted types of the real lanes, fold groups)."""
+    cfg = resolve_config(n_cells, GENES, ensize_K=K, reduced_ndim=P, partition_ncells=FOLD, rN_seed=7,
+                         dtype_compute="bfloat16", forview=False)
+    static = fold_static_args(cfg)
+    R = torch.from_numpy(d["R"]).to(torch.bfloat16)
+    plan, B = d["plan"], d["B"]
+    block_frs, truth, groups = [[] for _ in BLOCKS], [], 0
+    for g0 in range(0, len(plan), GROUP):
+        gplan = plan[g0 : g0 + GROUP]
+        sizes = [sz for _, sz in gplan]
+        lanes = sizes + [sizes[0]] * (GROUP - len(sizes))
+        Xg, ys = d["group"](g0, lanes)
+        masks = torch.arange(B)[None, :] < torch.tensor(lanes)[:, None]
+        out = fold_program(torch.from_numpy(Xg), masks, lanes, R, True, None, **static)
+        frs = tlarge.summaries_to_host(out, sizes + [0] * (GROUP - len(sizes)), False)
+        for gi, (bi, sz) in enumerate(gplan):
+            block_frs[bi].append(frs[gi])
+            truth.append(ys[gi, :sz])
+        groups += 1
+    fused = tlarge.fuse_blocks(block_frs, cfg, group=len(block_frs), device=CPU)
+    summaries, block_labels = [], []
+    for fres in fused:
+        uniq = np.unique(fres.labels)
+        summaries.append((fres.cents[uniq], fres.counts[uniq]))
+        block_labels.append(np.searchsorted(uniq, fres.labels))
+    tf, remap, offsets, _, _ = streaming.global_block_fuse(summaries, cfg, CPU)
+    parts = [remap[tf[offsets[bi] + block_labels[bi]]] for bi in range(len(summaries))]
+    labels = finalize_labels(np.concatenate(parts).astype(np.int32), merge_tiny=True)
+    return cfg, block_frs, fused, labels, truth, groups
+
+
 @pytest.mark.parametrize("n_cells", [sum(BLOCKS), DECLARED], ids=["real", "declared_1306127"])
 def test_compute_path_matches_the_jax_composition(bench_data, n_cells):
     d = bench_data
-    cfg = bench_torch.bench_config(_env(n_cells))
+    cfg, block_frs, fused, labels, truth, groups = _port_solution(d, n_cells)
     if n_cells == DECLARED:
         assert (cfg.maxN_cluster, cfg.nc_pad) == (262, 48)
-
-    def group(t0, sizes):
-        Xg, ys = d["group"](t0, sizes)
-        return torch.from_numpy(Xg), torch.from_numpy(ys)
-
-    R = torch.from_numpy(d["R"]).to(torch.bfloat16)
-    fp = bench_torch.fold_pass(group, d["plan"], d["B"], R, cfg, GROUP, CPU, len(BLOCKS))
-    assert len(fp["group_seconds"]) == 3 and [len(f) for f in fp["block_frs"]] == [3, 3, 3]
-    np.testing.assert_array_equal(np.concatenate(fp["truth"]), d["y"])
-    fused, summaries, block_labels = bench_torch.block_fuse(fp["block_frs"], cfg, CPU)
-    labels = bench_torch.global_fuse(summaries, block_labels, cfg, CPU)
+    assert groups == 3 and [len(f) for f in block_frs] == [3, 3, 3]
+    np.testing.assert_array_equal(np.concatenate(truth), d["y"])
 
     ref_fused, ref_labels = _jax_composition(d, n_cells)
     for mine, theirs in zip(fused, ref_fused):
@@ -137,9 +154,7 @@ def test_compute_path_matches_the_jax_composition(bench_data, n_cells):
     assert len(np.unique(labels)) >= 3
     if n_cells == DECLARED:
         # every block has fewer clusters than the widened floor of 26
-        per_block, glob = bench_torch._fuse_shapes(fp["block_frs"], summaries, cfg)
-        assert max(max(r["clusters"]) for r in per_block.values()) < 26
-        assert glob["clusters"] == sum(len(c) for _, c in summaries)
+        assert max(tlarge._prepare_block(frs, cfg).NC for frs in block_frs) < 26
 
 
 def test_sharp_unlimited_at_the_declared_size_matches_jax(tmp_path, monkeypatch):
@@ -168,9 +183,8 @@ def test_sharp_unlimited_at_the_declared_size_matches_jax(tmp_path, monkeypatch)
 
 
 def test_bench_env_block_plan_and_config(monkeypatch):
-    """The default workload: 26 blocks, the last 56,127 cells; 654 folds
-    (25 of every 50,000-cell block, 29 of the last) at n_pad 2048; the
-    configuration the JAX bench resolves."""
+    """The default workload: 1,306,127 cells x 27,998 genes, 38 types, in
+    26 blocks, the last 56,127 cells; the quick one: one block of 65,536."""
     for k in list(os.environ):
         if k.startswith("SHARP_BENCH_"):
             monkeypatch.delenv(k)
@@ -178,31 +192,15 @@ def test_bench_env_block_plan_and_config(monkeypatch):
     assert env["n_cells"] == 1306127 and env["n_genes"] == 27998 and env["n_types"] == 38
     assert (env["K"], env["p"], env["fold"], env["min_ari"]) == (5, 256, 2000, 0.80)
     assert env["blocks"] == [50000] * 25 + [56127]
-    cfg = bench_torch.bench_config(env)
-    plan = bench_torch.fold_plan(env["blocks"], cfg.partition_ncells)
-    assert len(plan) == 654 and sum(sz for _, sz in plan) == 1306127
-    assert sum(1 for bi, _ in plan if bi == 25) == 29
-    assert pad_dim(max(sz for _, sz in plan)) == 2048
-    assert -(-len(plan) // 16) == 41
-    ref = j_resolve_config(1306127, 27998, ensize_K=5, reduced_ndim=256, partition_ncells=2000, rN_seed=7,
-                           dtype_compute="bfloat16", forview=False)
-    assert cfg.as_dict() == ref.as_dict()
     monkeypatch.setenv("SHARP_BENCH_QUICK", "1")
     quick = bench_torch._bench_env()
     assert quick["blocks"] == [65536] and (quick["n_types"], quick["min_ari"]) == (12, 0.95)
 
 
 def test_quality_and_api_gates():
-    """The compute gates (ARI floor; cluster count in [max(2, types // 3),
-    ceil(1.5 types)]) and the API path's subset rule: a subset under 1e6
-    cells is held to ARI 0.95, the whole run to the configured floor."""
-    assert bench_torch.quality_gates("compute", 0.85, 38, 38, 0.80) == []
-    assert len(bench_torch.quality_gates("compute", 0.79, 38, 38, 0.80)) == 1
-    assert bench_torch.quality_gates("compute", 0.9, 57, 38, 0.80) == []
-    assert "> 1.5x" in bench_torch.quality_gates("compute", 0.9, 58, 38, 0.80)[0]
-    assert bench_torch.quality_gates("compute", 0.9, 12, 38, 0.80) == []
-    assert "over-merged" in bench_torch.quality_gates("compute", 0.9, 11, 38, 0.80)[0]
-    assert len(bench_torch.quality_gates("compute", 0.5, 70, 38, 0.80)) == 2
+    """The API path's gates: a subset under 1e6 cells is held to ARI 0.95,
+    the whole run to the configured floor; at most ceil(1.5 types)
+    clusters."""
     msgs, floor = bench_torch.api_gates(0.93, 38, 38, 0.80, subset=True, n_cells=200000)
     assert floor == 0.95 and len(msgs) == 1
     msgs, floor = bench_torch.api_gates(0.93, 38, 38, 0.80, subset=False, n_cells=1306127)
@@ -223,37 +221,6 @@ def test_card_generator_design_on_the_cpu():
     assert int(ys.min()) >= 0 and int(ys.max()) < 6
     X4, y4 = bench_torch.card_generator(500, 6, 64, CPU)(4, [64])
     assert torch.equal(X4[0], Xg[1]) and torch.equal(y4[0], ys[1])
-
-
-def test_compute_path_on_the_cpu(tmp_path, monkeypatch):
-    """`compute_path` end to end on the CPU at a tiny size (2 blocks of
-    1,000 cells x 1,000 genes, 8 folds in 2 groups of 4): bench.py's line
-    and its added fields, the exit code of the gates, the stages and the
-    profiler trace; then a failing parity pre-check gives bench.py's error
-    line and exit code 2 before any timing."""
-    from sharp_tpu_torch.ops import linkage
-
-    env = dict(n_cells=2000, n_genes=1000, n_types=4, K=2, p=32, fold=250, min_ari=0.5, blocks=[1000, 1000])
-    line, msgs, rc, rec = bench_torch.compute_path(env, CPU, group=4, profile_dir=str(tmp_path))
-    d = line["detail"]
-    assert (line["metric"], line["unit"]) == ("cells_per_second_end_to_end", "cells/s")
-    assert rc == (1 if msgs else 0) and d["ari_gate_passed"] == (not msgs)
-    assert line["value"] == pytest.approx(2000 / d["total_seconds"])
-    assert line["vs_baseline"] == pytest.approx(line["value"] * 9.771 / 479)
-    assert d["total_seconds"] == pytest.approx(d["fold_pass_seconds"] + d["block_fuse_seconds"]
-                                               + d["global_fuse_seconds"])
-    assert (d["n_folds"], d["n_blocks"], d["fold_group_size"], d["linkage_backend"]) == (8, 2, 4, "serial")
-    assert d["fold_group_seconds"]["n"] == 2 and d["block_fuse_each_seconds_untimed"]["n"] == 2
-    assert d["fold_pass_seconds"] == pytest.approx(sum(rec["group_seconds"]))
-    assert set(d["launches"]) == {"fold_pass", "block_fuse", "global_fuse"}
-    assert {"rp_project_s", "distance_s", "linkage_s", "fold_program_total_s"} <= set(d["stages"])
-    assert os.path.getsize(tmp_path / "bench_torch_fold_pass.json") > 0
-
-    monkeypatch.setattr(linkage, "validate_merge_sequence", lambda *a: ["1 self-merges"])
-    line, msgs, rc, _ = bench_torch.compute_path(env, CPU, group=4)
-    assert rc == 2 and line["value"] == 0.0
-    assert line["detail"]["error"] == "linkage parity pre-check FAILED on device"
-    assert set(line["detail"]["problems"]) == {"rnn_f32", "rnn_bf16", "serial_f32"}
 
 
 def test_make_blocks_writes_what_gen_block_writes(tmp_path):

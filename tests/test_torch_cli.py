@@ -13,20 +13,9 @@ import torch
 from sharp_tpu.cli import main as jax_cli
 from sharp_tpu_torch.cli import main as cli
 from tests.synth import make_tpm_like
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = ["--device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread in this module, restored after it: the t-SNE
-    loop and the plain loops here are thousands of small tensor operations,
-    and under the suite's parallel workers a thread pool per operation
-    oversubscribes the cores (the CLI's embed took 169 s instead of 3)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,7 @@ from cutree_model import chain_merges, random_viable_merges, snapshot_steps, sna
 from sharp_tpu.ops import linkage as jlink
 from sharp_tpu_torch.ops import linkage as tlink
 from sharp_tpu_torch.ops.select import prep_distance
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(minN=2, ncand=39)
 

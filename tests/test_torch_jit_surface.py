@@ -26,6 +26,7 @@ from sharp_tpu_torch.core import fold as tfold
 from sharp_tpu_torch.ops import linkage as tlink
 from sharp_tpu_torch.ops import select as tselect
 from tests.synth import make_tpm_like
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _distance(n, nreal, p=24, seed=7, tied=False):

@@ -31,6 +31,7 @@ from sharp_tpu_torch.core import smetac as tsmetac
 from sharp_tpu_torch.parallel.sharded import auto_group, process_folds_grouped
 from tests.synth import make_tpm_like
 from tests.test_large import _fake_fold_results
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _jax_draws(n, genes, K, p, rN_seed):

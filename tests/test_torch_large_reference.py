@@ -27,19 +27,12 @@ from sharp_tpu_torch.config import resolve_config
 from sharp_tpu_torch.parallel import sharded
 from sharp_tpu_torch.utils import timers
 from tests.synth import make_tpm_like
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, GENES, K, P, FOLD, PAD = 1200, 300, 3, 32, 200, 256
 KNOBS = dict(base_ncells=500, partition_ncells=FOLD, ensize_K=K, reduced_ndim=P, prep=False,
              log_transform=True, rN_seed=11, device="cpu")
 STAGES = ["preprocess", "log_decision", "permute_partition", "rp_setup", "fold_ensemble", "smetac", "finalize"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,7 @@ from sharp_tpu_torch.ops.linkage_cuda import (
     cutree_snapshots_kernel,
     ward_linkage_serial,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -31,19 +31,10 @@ from tests.synth import make_tpm_like
 from tests.test_torch_large import _jax_draws
 from tests.test_torch_streaming import same_rp  # noqa: F401  (a fixture)
 from tests.torch_mh_worker import inputs, run
+from torch_threads import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CPU8 = ["cpu"] * 8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread in this module (the shards bring their own
-    threads), restored after it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _same(a, b, keys=("pred_clusters", "per_member_k", "folds")):

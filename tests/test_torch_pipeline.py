@@ -26,6 +26,7 @@ from sharp_tpu_torch.core.block import cluster_block_ensemble as t_block
 from sharp_tpu_torch.core.pipeline import testlog_decide as t_testlog
 from sharp_tpu_torch.core.wmetac import wmetac as t_wmetac
 from tests.synth import make_tpm_like
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _jax_draws(n, genes, K, p, rN_seed):

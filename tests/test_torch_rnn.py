@@ -23,6 +23,7 @@ from sharp_tpu.ops import linkage as jlink
 from sharp_tpu.ops.linkage_pallas import rnn_tail_pallas
 from sharp_tpu_torch.ops import linkage as tlink
 from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES, rnn_tail_kernel
+from torch_threads import one_torch_thread  # noqa: F401
 
 STORES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 

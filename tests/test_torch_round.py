@@ -27,6 +27,7 @@ from sharp_tpu.ops.linkage_pallas import rnn_round_scatter as j_round_scatter
 from sharp_tpu_torch.ops import linkage as tlink
 from sharp_tpu_torch.ops import linkage_cuda
 from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES
+from torch_threads import one_torch_thread  # noqa: F401
 
 STORES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 BIG = np.float32(jlink.BIG)
@@ -125,16 +126,8 @@ def test_ladder_kernel_rounds_match_jax_fused_rounds(store):
     assert tlink.validate_merge_sequence(got.merges, got.heights, nreal, n) == []
 
 
-@pytest.fixture
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.mark.parametrize("store", ["f32", "bf16"])
-def test_kernel_rounds_equal_plain_rounds(one_thread, store):
+def test_kernel_rounds_equal_plain_rounds(store):
     """round_impl "pallas" (and "auto") against "xla", bit for bit; lanes
     of one batched call (different real counts, so frozen lanes) against
     single calls; level sizes that are not powers of two (768, 384)."""
@@ -203,7 +196,7 @@ def _state(ladder):
 
 
 @pytest.mark.parametrize("store", ["f32", "bf16"])
-def test_noop_round_changes_nothing(one_thread, store):
+def test_noop_round_changes_nothing(store):
     """A round on which no lane is active (every lane at or below nxt
     clusters) leaves every field of the ladder bit-identical: no pairs,
     nothing scattered, `rounds` unmoved; `_append` writes only the discard
@@ -241,7 +234,7 @@ def test_noop_round_changes_nothing(one_thread, store):
 
 @pytest.mark.parametrize("round_impl", ["pallas", "xla"])
 @pytest.mark.parametrize("store", ["f32", "bf16"])
-def test_level_loop_reads_every_k_rounds(one_thread, monkeypatch, store, round_impl):
+def test_level_loop_reads_every_k_rounds(monkeypatch, store, round_impl):
     """The level loop reading the host once every 8 rounds (the card's
     default for kernel rounds) gives the merges, heights and rounds per
     lane of a read before every round, on three lanes with a pad-heavy one
@@ -280,7 +273,7 @@ def test_level_loop_reads_every_k_rounds(one_thread, monkeypatch, store, round_i
 
 
 @pytest.mark.parametrize("round_impl", ["pallas", "xla"])
-def test_plain_rounds_read_every_round(one_thread, monkeypatch, round_impl):
+def test_plain_rounds_read_every_round(monkeypatch, round_impl):
     """Plain rounds (a CPU ladder, either round_impl) read the host before
     every round: a plain round does its whole work even with no lane
     active, so no round runs after every lane is done; the merges are those

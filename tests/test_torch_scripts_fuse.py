@@ -29,6 +29,7 @@ from sharp_tpu.core import large as jlarge
 from sharp_tpu.core.smetac import smetac as j_smetac
 from sharp_tpu.ops.rp import ensemble_rp_matrix as j_rp_matrix
 from tests.synth import make_tpm_like
+from torch_threads import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -41,14 +42,6 @@ import profile_fuse_batched_torch as pfb  # noqa: E402
 import profile_fuse_torch as pfu  # noqa: E402
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_fake_fold_results_are_the_jax_scripts():

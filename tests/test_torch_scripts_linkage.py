@@ -33,6 +33,7 @@ from sharp_tpu_torch.analysis.ari import ari
 from sharp_tpu_torch.ops import distance as tdist
 from sharp_tpu_torch.ops import linkage as tlink
 from tests.synth import make_tpm_like
+from torch_threads import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "scripts"))
@@ -45,14 +46,6 @@ import tune_linkage_rnn_torch as tune  # noqa: E402
 CPU = torch.device("cpu")
 N_PAD, N_REAL = 256, 230
 STORES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_distances(X, mask):

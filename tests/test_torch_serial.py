@@ -31,6 +31,7 @@ from sharp_tpu_torch import carry
 from sharp_tpu_torch.ops import linkage as tlink
 from sharp_tpu_torch.ops.linkage_cuda import LAUNCHES, ward_linkage_serial
 from tests.synth import make_tpm_like
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _jax_distance(K, n, nreal, p, seed):

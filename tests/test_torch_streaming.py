@@ -28,6 +28,7 @@ from sharp_tpu_torch.io.blocks import BlockStore, save_blocks
 from sharp_tpu_torch.parallel import streaming
 from tests.synth import make_tpm_like
 from tests.torch_mh_worker import shared_rp, ternary
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(rN_seed=19, ensize_K=4, partition_ncells=250, base_ncells=300)
 

@@ -29,6 +29,7 @@ from sharp_tpu_torch.ops.linkage_cuda import cutree_bytes
 from sharp_tpu_torch.ops.select import prep_distance
 from sharp_tpu_torch.utils import timers
 from synth import make_tpm_like
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = ["preprocess", "stage_rp_setup", "log_decision", "ensemble_cluster", "wmetac", "finalize"]
