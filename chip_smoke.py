@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. build    nvcc builds the hand-written kernels (csrc/*.cu: serial Ward,
               the cut replay, the ladder's tail and its round, the RP
-              operand) into build/kernels/, one nvcc per source, all at once.
+              operand, the selection sweep) into build/kernels/, one nvcc
+              per source, all at once.
   2. data     the flagship block: 50,000 cells x 27,998 genes, 10 planted
               types (tests/synth.py, data seed 0), made once on the host.
   3. kernels  each kernel against its plain PyTorch version on the card.
@@ -52,7 +53,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               kernel rounds against the same rounds finished by the plain
               tail and against plain rounds (round_impl="xla"), merges and
               heights identical, and both timed in turns (xla, pallas,
-              pallas, xla); the cut replay at (80, 2048); serial Ward (both
+              pallas, xla); the cut replay at (80, 2048); the selection
+              sweep's three kernels at (80, 2048) on its cuts against the
+              plain sweep (msil identical, CH within 1e-5 relative), timed
+              beside it and beside their bound, and alone on the profiler
+              there (its 1.3 GB of inputs are not kept to the run's end);
+              serial Ward (both
               storage types) and the cut replay on the wMetaC problem (1,
               256) and on a fold group's 16 wMetaC problems (16, 256), the
               shape wMetaC gives them now. Median times from CUDA events
@@ -84,7 +90,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               tail in the tail kernel; serial Ward took every fold's wMetaC
               problem and sMetaC's (ops.linkage_cuda.PROBLEMS) in at most one
               wMetaC launch per fold group and one sMetaC launch; a cut
-              replay per linkage; and in each fold-program call the round
+              replay per linkage; each selection through the sweep's three
+              kernels, once each; and in each fold-program call the round
               kernel at each ladder level (2048, 1024, 512) and no other,
               the tail kernel once and serial Ward once, on the group's
               wMetaC problems (one a lane). Then the same block with
@@ -545,6 +552,55 @@ def _hold_cutree(name, merges, nr, ncand, minN=2, row=None):
     return row
 
 
+SWEEP_KERNELS = ("sweep_nodes", "sweep_score", "sweep_median")
+
+
+def _hold_sweep(name, D_real, feats, merges, nr, mask, maxN=40, minN=2, ncand=39, nc_pad=48):
+    """The selection sweep through its three kernels against the plain sweep
+    on the card, on one cut replay of `merges`: one launch of each kernel,
+    msil identical, CH within 1e-5 relative; ms a call through each route
+    (the kernels' with the torch preamble), the three kernels alone, and
+    their bound: the sums and FC tables read once, the own table and the
+    widths and CH terms written once and read once."""
+    import torch
+
+    from sharp_tpu_torch.ops import silhouette
+    from sharp_tpu_torch.ops.linkage_cuda import cutree_multi_kernel
+
+    kw = dict(minN=minN, ncand=ncand, nc_pad=nc_pad)
+    cuts = cutree_multi_kernel(merges, nr, mask, maxN, **kw)
+    args = (D_real, feats, merges, cuts.labels, mask, nr, maxN)
+    before = dict(silhouette.LAUNCHES)
+    msil, ch = silhouette.sweep_scores_nested(*args, **kw)
+    pm, pc = silhouette.sweep_scores_nested_plain(*args, **kw)
+    torch.cuda.synchronize()
+    launched = {k: silhouette.LAUNCHES[k] - before[k] for k in before}
+    if launched != dict.fromkeys(SWEEP_KERNELS, 1):
+        raise AssertionError(f"{name}: the sweep launched {launched}, not each kernel once")
+    if not torch.equal(msil, pm):
+        raise AssertionError(f"{name}: msil differs from the plain sweep by {float((msil - pm).abs().max())}")
+    ch_err = float(((ch - pc).abs() / pc.abs().clamp_min(1e-30)).max())
+    if ch_err > 1e-5:
+        raise AssertionError(f"{name}: CH differs from the plain sweep by {ch_err} relative")
+    L, n = D_real.shape[0], D_real.shape[-1]
+    bound, by = _bound(2 * L * n * (nc_pad + ncand) * 4 + 2 * L * ncand * n * (1 + 2 * 4))
+    row = dict(
+        shape=[L, n, ncand, nc_pad], ch_max_rel_err=ch_err, bound_ms=bound, bound_by=by,
+        ms=_median_ms(lambda: silhouette.sweep_scores_nested(*args, **kw), KERNEL_REPS),
+        plain_ms=_median_ms(lambda: silhouette.sweep_scores_nested_plain(*args, **kw), PLAIN_REPS),
+    )
+    # now, not deferred to the run's end with the others: the inputs (a 1.3 GB
+    # D_real) would stay on the card through phase 8 (c), whose processes
+    # size their fold groups from its free memory
+    row["device_ms"] = _device_ms(lambda: silhouette.sweep_scores_nested(*args, **kw), SWEEP_KERNELS)
+    print(
+        f"[kernels] sweep {name}: msil identical to the plain sweep, CH within {ch_err:.2e}; "
+        f"{row['ms']:.3f} ms a call (plain {row['plain_ms']:.3f} ms, the kernels alone {row['device_ms']} ms, "
+        f"bound {bound * 1e3:.2f} us)",
+        flush=True,
+    )
+    return row
+
 def _fold_group_features(X, dev, sizes=None, cfg=None):
     """A fold group of the large path on X: G=16 folds (of 2,000 cells, or
     `sizes`) at n_pad 2048, log2, projected K ways with one ternary RP
@@ -849,6 +905,15 @@ def phase_kernels(dev, record, Xbig, ybig):
         f"{big['cutree_bound_ms'] * 1e3:.2f} us)",
         flush=True,
     )
+    # the selection sweep on the same group's lanes and merges
+    from sharp_tpu_torch.ops.select import prep_distance
+
+    proj, mask, n_real, _ = _fold_group_features(Xbig, dev)
+    _, D_real, feats = prep_distance(proj, mask, symmetric=False)
+    del proj
+    record["sweep_80x2048"] = _hold_sweep("80x2048", D_real, feats, links["f32"].merges, n_real, mask)
+    del D_real, feats
+    torch.cuda.empty_cache()
     # the launch floor: the same kernel on a two-cell problem, which has no
     # snapshot step, with n_real from the host (as the pipeline passes it)
     # and already on the card, and the kernel's own time
@@ -1166,26 +1231,27 @@ def _run_counted(X, entry="sharp", **kw):
     kernel's launch and problem counts set to 0 just before it and read just
     after, and the routes its cut-replay problems and tail lanes took, and
     its RP products' (`routes["rp"]["tensor_core"]`: the operand kernel's
-    launches, one a product on the tensor-core route).
+    launches, one a product on the tensor-core route), and the selection
+    sweep's launches by kernel (`routes["sweep"]`).
     Returns (result, wall, launches, problems, routes)."""
     import torch
 
     import sharp_tpu_torch
-    from sharp_tpu_torch.ops import linkage_cuda, rp
+    from sharp_tpu_torch.ops import linkage_cuda, rp, silhouette
 
     log, saved = _RouteLog(), linkage_cuda.ROUTES
     linkage_cuda.ROUTES = log
     try:
         linkage_cuda.SHARD_LAUNCHES.clear()
         linkage_cuda.SHARD_PROBLEMS.clear()
-        for counter in (linkage_cuda.LAUNCHES, linkage_cuda.PROBLEMS, rp.LAUNCHES):
+        for counter in (linkage_cuda.LAUNCHES, linkage_cuda.PROBLEMS, rp.LAUNCHES, silhouette.LAUNCHES):
             counter.update(dict.fromkeys(counter, 0))
         t0 = time.perf_counter()
         res = getattr(sharp_tpu_torch, entry)(X, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, problems = dict(linkage_cuda.LAUNCHES), dict(linkage_cuda.PROBLEMS)
-        routes = dict(log.counts(), rp={"tensor_core": rp.LAUNCHES["rp_operand"]})
+        routes = dict(log.counts(), rp={"tensor_core": rp.LAUNCHES["rp_operand"]}, sweep=dict(silhouette.LAUNCHES))
     finally:
         linkage_cuda.ROUTES = saved
     return res, wall, counts, problems, routes
@@ -1495,6 +1561,10 @@ def phase_large(dev, record, Xbig, ybig):
                 raise AssertionError(f"flagship: a linkage went without its cut replay: {counts}")
             if routes["cutree"]["serial"]:
                 raise AssertionError(f"flagship: cut-replay problems took the serial route: {routes}")
+            # every selection through the sweep's three kernels, one launch each
+            sweep = routes["sweep"]
+            if min(sweep.values()) < 1 or len(set(sweep.values())) != 1:
+                raise AssertionError(f"flagship: the selection sweep's kernels launched {sweep}")
             # each fold group: rounds at the three levels, one tail, one
             # serial Ward launch for its lanes' wMetaC problems, a cut
             # replay per linkage
@@ -2767,6 +2837,18 @@ def main() -> int:
             "stage": {"ms": r["stage_ms"], "before_ms": r["stage_before_ms"]},
         }
 
+    def sweep_entry(r):
+        # the selection sweep's three kernels at a fold group's shape;
+        # launches: the large tier's flagship run (phase 5 (b)), by kernel;
+        # ms a call with the torch preamble, device_ms the three kernels
+        return {
+            "name": "sweep", "route": "cuda", "source": "sharp_tpu_torch/csrc/sweep.cu", "replaces": None,
+            "launches": record["large"]["flagship_50000x27998"]["auto"]["routes"]["sweep"],
+            "max_abs_err": 0.0, "ch_max_rel_err": r["ch_max_rel_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "device_ms": r["device_ms"],
+            "shape": r["shape"],
+        }
+
     rp_launches = {
         "large": record["large"]["flagship_50000x27998"]["auto"]["routes"]["rp"]["tensor_core"],
         "unlimited": record["unlimited"]["flagship_4x50000x27998"]["routes"]["rp"]["tensor_core"],
@@ -2790,6 +2872,7 @@ def main() -> int:
                   cut["cutree_ms"], cut["cutree_plain_ms"], cut["cutree_bound_ms"], cut["cutree_bound_by"],
                   cut["cutree_device_ms"]),
             rp_entry(record["rp"]),
+            sweep_entry(record["sweep_80x2048"]),
         ]
     }
     record["kernels_line"] = kernels

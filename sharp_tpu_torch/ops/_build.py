@@ -12,8 +12,8 @@ one build.
 
 Flags: `--fmad=false` keeps the float arithmetic unfused (the Ward kernel
 also spells its update with round-to-nearest intrinsics), and there is no
-`--use_fast_math`: the Lance-Williams division must be IEEE, and the RP
-operand's `log2f` must be torch's.
+`--use_fast_math`: the Lance-Williams division and the sweep's silhouette
+divisions must be IEEE, and the RP operand's `log2f` must be torch's.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("ward_serial.cu", "cutree.cu", "rnn_tail.cu", "rnn_round.cu", "rp_operand.cu")
+SOURCES = ("ward_serial.cu", "cutree.cu", "rnn_tail.cu", "rnn_round.cu", "rp_operand.cu", "sweep.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -66,6 +66,11 @@ _SIGNATURES = {
     "rp_operand.cu": {
         "sharp_rp_operand_launch": (
             _INT, [_VOID_P, _VOID_P, _INT64] + [_INT] * 4 + [_VOID_P]
+        ),
+    },
+    "sweep.cu": {
+        "sharp_sweep_launch": (
+            _INT, [_VOID_P] * 16 + [_INT] * 9 + [_VOID_P]
         ),
     },
 }

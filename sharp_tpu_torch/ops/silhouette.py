@@ -12,19 +12,34 @@ of clues::get_CH.
 reference does; it is the reference of `sweep_scores_nested`, which scores
 the nested cuts of L problems (lanes) at once and is what the selection
 runs. Own-cluster quantities are gathers, not one-hot contractions.
+
+`sweep_scores_nested` launches the sweep's hand-written kernels
+(`csrc/sweep.cu`: `sweep_nodes`, `sweep_score`, `sweep_median`) for a CUDA
+tensor and takes its plain version, `sweep_scores_nested_plain`, for a CPU
+tensor; any other device raises. The kernels launch on the current stream
+and do not synchronise; each adds one to its entry of `LAUNCHES` under a
+lock (the shards of `parallel/sharded.py` select from several threads).
+While a profiler records, the lanes each route took are counted
+(`select.kernel_lanes`, `select.plain_lanes` in `timers.snapshot()["sums"]`).
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from sharp_tpu_torch.ops.linkage import counts_per_problem
+from sharp_tpu_torch.utils.timers import add
 
 _INF = float("inf")
 # the candidate scoring's (lanes, ncand, n, V) temporaries are built this
 # many bytes of lanes at a time
 SWEEP_CHUNK_BYTES = 512 << 20
+# launches of the sweep's kernels, keyed by the kernel's name; on the card only
+LAUNCHES = dict.fromkeys(("sweep_nodes", "sweep_score", "sweep_median"), 0)
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def masked_median(x: torch.Tensor, mask: torch.Tensor, n_valid) -> torch.Tensor:
@@ -106,15 +121,16 @@ def sweep_scores(D_real, feats_unit, labels_all, ks, real_mask, n_real, *, nc_pa
 
 
 def sweep_bytes(lanes: int, n: int, ncand: int, nc_pad: int) -> int:
-    """Device bytes `sweep_scores_nested` holds for `lanes` lanes at n_pad
-    n besides its inputs and the SWEEP_CHUNK_BYTES of its scoring: four (n,
+    """Device bytes the plain sweep holds for `lanes` lanes at n_pad n
+    besides its inputs and the SWEEP_CHUNK_BYTES of its scoring: four (n,
     V) float32 node tables and three (ncand, n) per-cut rows a lane, V =
-    nc_pad + ncand."""
+    nc_pad + ncand. The kernels' route holds less (three tables, no
+    scoring temporaries), so this bounds both."""
     V = nc_pad + ncand
     return lanes * (4 * n * V * 4 + 3 * ncand * n * 8)
 
 
-def sweep_scores_nested(
+def sweep_scores_nested_plain(
     D_real: torch.Tensor,       # ([L,] n, n) pad rows/cols zeroed, zero diagonal
     feats_unit: torch.Tensor,   # ([L,] n, p) centered unit rows
     merges: torch.Tensor,       # ([L,] n_pad - 1, 2) linkage merge sequences
@@ -127,8 +143,9 @@ def sweep_scores_nested(
     ncand: int,
     nc_pad: int,
 ):
-    """Median silhouette + CH for every candidate cut of L lanes, using cut
-    nesting. Returns (msil ([L,] ncand), ch ([L,] ncand)).
+    """The plain version of `sweep_scores_nested` (on any device): median
+    silhouette + CH for every candidate cut of L lanes, using cut nesting.
+    Returns (msil ([L,] ncand), ch ([L,] ncand)).
 
     Cuts k = minN..minN+ncand-1 are nested, so the distinct clusters of a
     lane's sweep are the <= nc_pad clusters of its finest cut plus one new
@@ -235,3 +252,200 @@ def sweep_scores_nested(
         msil.append(masked_median(s, real_mask[sl, None, :], nrc))
     msil, ch = torch.cat(msil), torch.cat(ch)
     return (msil[0], ch[0]) if squeeze else (msil, ch)
+
+
+def sweep_scores_nested(
+    D_real: torch.Tensor,       # ([L,] n, n) pad rows/cols zeroed, zero diagonal
+    feats_unit: torch.Tensor,   # ([L,] n, p) centered unit rows
+    merges: torch.Tensor,       # ([L,] n_pad - 1, 2) int32 linkage merge sequences
+    labels_all: torch.Tensor,   # ([L,] ncand, n) int32 dense per-cut labels (cutree)
+    real_mask: torch.Tensor,    # ([L,] n) bool, or (n,) for every lane
+    n_real,                     # int or (L,) tensor
+    maxN,                       # int or (L,) tensor
+    *,
+    minN: int,
+    ncand: int,
+    nc_pad: int,
+):
+    """Median silhouette + CH for every candidate cut of L lanes, using cut
+    nesting. Returns (msil ([L,] ncand), ch ([L,] ncand)).
+
+    On a CUDA tensor: the finest cut's one-hot and its three products in
+    torch, as in the plain version, then the three kernels of
+    `csrc/sweep.cu` in place of its candidate loop and chunked scoring:
+    `msil` is bit-equal to `sweep_scores_nested_plain` on the same device,
+    `ch` equal up to the order of its two sums. On a CPU tensor: the plain
+    version. Nothing is read back to the host.
+    """
+    squeeze = D_real.dim() == 2
+    L = 1 if squeeze else D_real.shape[0]
+    if D_real.device.type == "cpu":
+        add("select.plain_lanes", L)
+        return sweep_scores_nested_plain(
+            D_real, feats_unit, merges, labels_all, real_mask, n_real, maxN,
+            minN=minN, ncand=ncand, nc_pad=nc_pad,
+        )
+    if D_real.device.type != "cuda":
+        raise ValueError(f"unsupported device {D_real.device} (cpu or cuda)")
+    if D_real.dtype != torch.float32 or feats_unit.dtype != torch.float32:
+        raise TypeError(f"sweep_scores_nested takes float32 D_real and feats_unit, got "
+                        f"{D_real.dtype} and {feats_unit.dtype}")
+    if squeeze:
+        D_real, feats_unit, merges, labels_all = (x[None] for x in (D_real, feats_unit, merges, labels_all))
+    add("select.kernel_lanes", L)
+    msil, ch = _sweep_on_card(D_real, feats_unit, merges, labels_all, real_mask, n_real, maxN,
+                              minN=minN, ncand=ncand, nc_pad=nc_pad)
+    return (msil[0], ch[0]) if squeeze else (msil, ch)
+
+
+def _sweep_on_card(D_real, feats_unit, merges, labels_all, real_mask, n_real, maxN, *,
+                   minN: int, ncand: int, nc_pad: int):
+    """`sweep_scores_nested` of L lanes (L, n, .) on the card: the torch
+    preamble and node quantities around the three kernels."""
+    L, n = D_real.shape[0], D_real.shape[-1]
+    V = nc_pad + ncand
+    dev = D_real.device
+    real_mask = real_mask.expand(L, n).contiguous()
+    rm = real_mask.to(torch.float32)
+    nr = counts_per_problem(n_real, L, dev)
+    mx = counts_per_problem(maxN, L, dev)
+
+    # the finest cut each lane scores, and its one-hot: the plain version's
+    # values, so the products below are its products
+    kmax_eff = torch.clamp_max(torch.minimum(mx, nr - 1), min(minN + ncand - 1, nc_pad - 1))
+    c_fine = torch.clamp(kmax_eff - minN, 0, ncand - 1)
+    fine = torch.gather(labels_all, 1, c_fine.long()[:, None, None].expand(L, 1, n))
+    oh = torch.zeros((L, n, V), dtype=torch.float32, device=dev).scatter_(2, fine.view(L, n, 1).long(), rm[..., None])
+    counts = oh.sum(dim=1)                                     # (L, V)
+    sums = D_real @ oh                                         # (L, n, V)
+    centsum = oh.transpose(1, 2) @ feats_unit                  # (L, V, p)
+    del oh
+    own, live = sweep_nodes_kernel(
+        merges.contiguous(), labels_all.contiguous(), nr, c_fine, sums, counts, centsum,
+        minN=minN, nc_pad=nc_pad,
+    )
+    # cut-independent node quantities, as in the plain version
+    cent_u = _unit(centsum / torch.clamp_min(counts[..., None], 1.0))
+    FC = feats_unit @ cent_u.transpose(1, 2)                   # (L, n, V)
+    g = (feats_unit * rm[..., None]).sum(dim=1) / torch.clamp_min(nr, 1)[:, None]
+    corr_cg = (cent_u * _unit(g)[:, None, :]).sum(dim=-1)      # (L, V)
+    width, wterm = sweep_score_kernel(sums, counts, FC, own, live, real_mask)
+    return sweep_median_kernel(width, wterm, real_mask, nr, live, counts, corr_cg, minN=minN)
+
+
+# the own table's integer type by the largest node count it holds
+_OWN_TYPES = ((256, torch.uint8, 1), (32768, torch.int16, 2), (2 ** 31 - 1, torch.int32, 4))
+# gridDim.y of sweep_score and sweep_median holds the lanes
+SWEEP_MAX_LANES = 65535
+
+
+def _own_type(V: int):
+    return next((dt, nb) for cap, dt, nb in _OWN_TYPES if V <= cap)
+
+
+def _check(*tables) -> None:
+    """Raise unless each (name, x, dtype, shape) is a contiguous tensor of
+    `dtype` and `shape`, then unless each lies on a CUDA device."""
+    for name, x, dtype, shape in tables:
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {tuple(shape)}, got {tuple(x.shape)}"
+                             f"{'' if x.is_contiguous() else ' (not contiguous)'}")
+    for name, x, _, _ in tables:
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} must lie on a CUDA device, got {x.device}")
+
+
+def _launch(stage: int, name: str, L: int, n: int, p: int, V: int, nc_pad: int, minN: int, ncand: int,
+            own_bytes: int, **ptr) -> None:
+    from sharp_tpu_torch.ops._build import load_kernels
+
+    if not 1 <= L <= SWEEP_MAX_LANES:
+        raise ValueError(f"{name} takes 1 <= L <= {SWEEP_MAX_LANES} lanes, got {L}")
+    args = [ptr.get(k) for k in ("merges", "labels", "n_real", "c_fine", "sums", "counts", "centsum", "fc",
+                                 "real", "corr_cg", "own", "live", "width", "wterm", "msil", "ch")]
+    rc = load_kernels()["sweep.cu"].sharp_sweep_launch(
+        *(None if a is None else a.data_ptr() for a in args),
+        L, n, p, V, nc_pad, minN, ncand, own_bytes, stage, torch.cuda.current_stream().cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with cudaError_t {rc}")
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
+
+
+def sweep_nodes_kernel(merges, labels, n_real, c_fine, sums, counts, centsum, *, minN: int, nc_pad: int):
+    """Replay each lane's nested merges from its finest scored cut c_fine
+    (L,) int32 down to candidate 0 (`csrc/sweep.cu`, sweep_nodes): merges
+    (L, n-1, 2) and labels (L, ncand, n) int32, n_real (L,) int32; the new
+    nodes' columns of sums (L, n, V), counts (L, V) and centsum (L, V, p)
+    float32 are written in place. Returns own (L, ncand, n), each cell's
+    node at each candidate, in the narrowest integer type that holds V,
+    and live (L, ncand, ceil(V / 32)) int32, the bits of the live nodes."""
+    L, ncand, n = labels.shape
+    V, p = centsum.shape[1], centsum.shape[2]
+    if V != nc_pad + ncand:
+        raise ValueError(f"sweep_nodes takes V = nc_pad + ncand = {nc_pad + ncand} nodes, got {V}")
+    _check(
+        ("merges", merges, torch.int32, (L, n - 1, 2)),
+        ("labels", labels, torch.int32, (L, ncand, n)),
+        ("n_real", n_real, torch.int32, (L,)),
+        ("c_fine", c_fine, torch.int32, (L,)),
+        ("sums", sums, torch.float32, (L, n, V)),
+        ("counts", counts, torch.float32, (L, V)),
+        ("centsum", centsum, torch.float32, (L, V, p)),
+    )
+    own_dtype, own_bytes = _own_type(V)
+    own = torch.empty((L, ncand, n), dtype=own_dtype, device=sums.device)
+    live = torch.empty((L, ncand, -(-V // 32)), dtype=torch.int32, device=sums.device)
+    _launch(0, "sweep_nodes", L, n, p, V, nc_pad, minN, ncand, own_bytes, merges=merges, labels=labels,
+            n_real=n_real, c_fine=c_fine, sums=sums, counts=counts, centsum=centsum, own=own, live=live)
+    return own, live
+
+
+def sweep_score_kernel(sums, counts, fc, own, live, real_mask):
+    """Each cell's silhouette width and 1 - corr(own centroid) term at
+    every candidate (`csrc/sweep.cu`, sweep_score): sums and fc (L, n, V)
+    float32, counts (L, V), own and live from `sweep_nodes_kernel`,
+    real_mask (L, n) bool. Returns (width, wterm), (L, ncand, n) float32
+    each; wterm is 0 at pad cells."""
+    L, ncand, n = own.shape
+    V = counts.shape[1]
+    _check(
+        ("sums", sums, torch.float32, (L, n, V)),
+        ("counts", counts, torch.float32, (L, V)),
+        ("fc", fc, torch.float32, (L, n, V)),
+        ("own", own, _own_type(V)[0], (L, ncand, n)),
+        ("live", live, torch.int32, (L, ncand, -(-V // 32))),
+        ("real_mask", real_mask, torch.bool, (L, n)),
+    )
+    width = torch.empty((L, ncand, n), dtype=torch.float32, device=sums.device)
+    wterm = torch.empty_like(width)
+    _launch(1, "sweep_score", L, n, 0, V, V - ncand, 0, ncand, _own_type(V)[1], sums=sums, counts=counts,
+            fc=fc, own=own, live=live, real=real_mask, width=width, wterm=wterm)
+    return width, wterm
+
+
+def sweep_median_kernel(width, wterm, real_mask, n_real, live, counts, corr_cg, *, minN: int):
+    """Each candidate's median width over the real cells (R's median, as
+    `masked_median`) and CH index (`csrc/sweep.cu`, sweep_median): width and
+    wterm from `sweep_score_kernel`, real_mask (L, n) bool, n_real (L,)
+    int32, live from `sweep_nodes_kernel`, counts and corr_cg (L, V)
+    float32. Returns (msil, ch), (L, ncand) float32 each."""
+    L, ncand, n = width.shape
+    V = counts.shape[1]
+    _check(
+        ("width", width, torch.float32, (L, ncand, n)),
+        ("wterm", wterm, torch.float32, (L, ncand, n)),
+        ("real_mask", real_mask, torch.bool, (L, n)),
+        ("n_real", n_real, torch.int32, (L,)),
+        ("live", live, torch.int32, (L, ncand, -(-V // 32))),
+        ("counts", counts, torch.float32, (L, V)),
+        ("corr_cg", corr_cg, torch.float32, (L, V)),
+    )
+    msil = torch.empty((L, ncand), dtype=torch.float32, device=width.device)
+    ch = torch.empty_like(msil)
+    _launch(2, "sweep_median", L, n, 0, V, V - ncand, minN, ncand, _own_type(V)[1], width=width, wterm=wterm,
+            real=real_mask, n_real=n_real, live=live, counts=counts, corr_cg=corr_cg, msil=msil, ch=ch)
+    return msil, ch

@@ -231,6 +231,123 @@ def test_cutree_kernel_serial_route_and_edges(dev):
     _hold_cutree(odd, [1000], [0])
 
 
+# --- the selection sweep: csrc/sweep.cu ---------------------------------------
+
+def _sweep_problem(dev, n, nreals, maxNs, *, minN=2, ncand=39, nc_pad=48, kind="blobs", seed=0, p=16):
+    """A selection of L lanes at n_pad n on the card: D_real, feats_unit, the
+    serial-Ward merges and the cut replay's labels, each lane's n_real and
+    maxN (tensors). kind "blobs": 12 Gaussian clusters a lane; "tied": a
+    wMetaC-like similarity of 5 labellings (six distinct values, so widths
+    tie); "dup": blobs whose every point has an exact duplicate."""
+    from sharp_tpu_torch.ops.linkage_cuda import cutree_multi_kernel, ward_linkage_serial
+    from sharp_tpu_torch.ops.select import prep_distance
+
+    rng = np.random.default_rng(seed)
+    L = len(nreals)
+    mask = torch.from_numpy(np.arange(n)[None, :] < np.asarray(nreals)[:, None])
+    if kind == "tied":
+        mat = np.zeros((L, n, n), np.float32)
+        for lane, r in enumerate(nreals):
+            lab = rng.integers(0, 6, (r, 5))
+            mat[lane, :r, :r] = (lab[:, None, :] == lab[None, :, :]).mean(-1)
+    else:
+        mat = np.zeros((L, n, p), np.float32)
+        for lane, r in enumerate(nreals):
+            cen = 3.0 * rng.normal(size=(12, p))
+            pts = cen[rng.integers(0, 12, r)] + rng.normal(size=(r, p))
+            if kind == "dup":
+                pts[1::2] = pts[0::2][: r // 2]
+            mat[lane, :r] = pts
+    mask = mask.to(dev)
+    D, D_real, feats = prep_distance(torch.from_numpy(mat).to(dev), mask, symmetric=kind == "tied")
+    link = ward_linkage_serial(D.contiguous())
+    nr = torch.tensor(nreals, dtype=torch.int32, device=dev)
+    mx = torch.tensor(maxNs, dtype=torch.int32, device=dev)
+    kw = dict(minN=minN, ncand=ncand, nc_pad=nc_pad)
+    cuts = cutree_multi_kernel(link.merges, nr, mask, mx, **kw)
+    return (D_real, feats, link.merges, cuts.labels, mask, nr, mx), kw, link, cuts
+
+
+def _hold_sweep(args, kw):
+    """The sweep through its kernels against its plain version on the same
+    card: one launch of each kernel, msil bit-equal, CH to 1e-5 relative
+    (its two sums run in another order). Returns the kernels' (msil, ch)."""
+    from sharp_tpu_torch.ops import silhouette
+
+    before = dict(silhouette.LAUNCHES)
+    msil, ch = silhouette.sweep_scores_nested(*args, **kw)
+    torch.cuda.synchronize()
+    assert {k: silhouette.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+    pm, pc = silhouette.sweep_scores_nested_plain(*args, **kw)
+    assert torch.equal(msil, pm), float((msil - pm).abs().max())
+    torch.testing.assert_close(ch, pc, rtol=1e-5, atol=0)
+    return msil, ch
+
+
+# (n, n_real per lane, maxN per lane, the sweep's minN/ncand/nc_pad, kind):
+# the shapes the cells reach and the edges
+SWEEP_SHAPES = {
+    # a fold group of 16 folds x 5 members; the bench's short folds
+    "fold_80x2048": (2048, [2000] * 70 + [1063] * 5 + [1064] * 5, [40] * 80, {}, "blobs"),
+    # a fold group's wMetaC meta problems; Wang's members, its testlog lane
+    # and its wMetaC problem
+    "wmetac_16x256": (256, [250 - 3 * g for g in range(16)], [40] * 16, {}, "tied"),
+    "wang_15x512": (512, [479] * 15, [40] * 15, {}, "blobs"),
+    "wang_1x512": (512, [479], [40], {}, "blobs"),
+    "wang_wmetac_1x640": (640, [600], [40], {}, "tied"),
+    # the atlas's sMetaC fuses: NC_pad 1536, minN 26, maxN 261
+    "smetac_4x1536": (1536, [1500, 1480, 1300, 700], [261] * 4, dict(minN=26, ncand=236, nc_pad=270), "dup"),
+    # gethclust's largest padded size
+    "gethclust_1x8192": (8192, [8000], [40], {}, "blobs"),
+    # n_real well below n_pad, maxN below 40, k == 1 (one real cell), an
+    # all-singleton cut (two), exact duplicates
+    "edges_8x256": (256, [256, 200, 41, 12, 3, 2, 1, 100], [40, 25, 40, 40, 40, 40, 40, 5], {}, "dup"),
+    # every lane's finest cut capped at nc_pad - 1
+    "capped_4x512": (512, [500, 480, 300, 60], [40] * 4, dict(nc_pad=16), "blobs"),
+}
+
+
+@pytest.mark.parametrize("shape", list(SWEEP_SHAPES))
+def test_sweep_kernels_match_plain(dev, shape):
+    n, nreals, maxNs, over, kind = SWEEP_SHAPES[shape]
+    args, kw, _, _ = _sweep_problem(dev, n, nreals, maxNs, kind=kind, **over)
+    msil, _ = _hold_sweep(args, kw)
+    assert msil.shape == (len(nreals), kw.get("ncand", 39))
+
+
+def test_sweep_kernels_match_the_cpu_copy(dev):
+    """The kernels on the card against the plain sweep on a CPU copy of the
+    same inputs. The distances are multiples of 1/64, so the sums of the
+    one-hot product are exact in any order and msil is bit-equal across
+    devices; the cosine products of CH round differently on each device."""
+    from sharp_tpu_torch.ops import silhouette
+
+    args, kw, _, _ = _sweep_problem(dev, 512, [479, 300, 60], [40, 40, 12])
+    D_real = torch.round(args[0] * 64.0) / 64.0
+    args = (D_real, *args[1:])
+    msil, ch = _hold_sweep(args, kw)
+    cm, cc = silhouette.sweep_scores_nested_plain(*(a.cpu() for a in args), **kw)
+    assert torch.equal(msil.cpu(), cm)
+    torch.testing.assert_close(ch.cpu(), cc, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("sil_thre", [0.35, 1.5], ids=["silhouette", "ch_fallback"])
+def test_select_cut_through_the_kernels_matches_plain(dev, monkeypatch, sil_thre):
+    """select_cut on the kernels' scores and on the plain sweep's, on the
+    card: the chosen candidate, k, labels and maxsil identical, by the
+    silhouette rule and by the CH fallback."""
+    from sharp_tpu_torch.ops import select, silhouette
+
+    args, kw, link, cuts = _sweep_problem(dev, 512, [479, 400, 200, 41, 3], [40, 40, 40, 20, 40], kind="dup")
+    rule = dict(sil_thre=sil_thre, height_Ntimes=2.0, height_tail=10)
+    D_real, feats, _, _, mask, nr, mx = args
+    got = select.select_cut(D_real, feats, link, cuts, mask, nr, mx, **kw, **rule)
+    monkeypatch.setattr(select, "sweep_scores_nested", silhouette.sweep_scores_nested_plain)
+    ref = select.select_cut(D_real, feats, link, cuts, mask, nr, mx, **kw, **rule)
+    for name in ("oind", "k", "labels", "maxsil", "msil"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
 def _tail_lanes(L, Cn, dev, seed=0):
     """Compacted-tail-like lanes: the first n_alive slots live, dead slots
     and the diagonal BIG, sizes > 1, running heights, increasing global
@@ -565,6 +682,19 @@ def test_wrappers_refuse_bad_input(dev):
         rnn_round_kernel(bad, 32, 8)
     with pytest.raises(ValueError):
         rnn_round_kernel(ladder, 32, 33)              # P > m // 2
+
+    from sharp_tpu_torch.ops.silhouette import sweep_score_kernel, sweep_scores_nested
+
+    args, kw, _, _ = _sweep_problem(dev, 64, [60, 50], [40, 40])
+    with pytest.raises(TypeError):
+        sweep_scores_nested(args[0].double(), *args[1:], **kw)
+    with pytest.raises(TypeError):
+        sweep_scores_nested(*args[:2], args[2].long(), *args[3:], **kw)
+    sums = torch.zeros((2, 64, 87), device=dev)
+    own = torch.zeros((2, 39, 64), dtype=torch.uint8, device=dev)
+    live = torch.zeros((2, 39, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                 # a table not contiguous
+        sweep_score_kernel(sums, sums[:, 0], sums.transpose(1, 2).contiguous().transpose(1, 2), own, live, args[4])
 
 
 def test_sharp_on_card_matches_cpu(dev):
@@ -1213,3 +1343,82 @@ def test_dense_feed_on_card_pins_and_keeps_the_answer(dev, monkeypatch):
     b = sharp_tpu_torch.sharp(X, device=dev, **draws, **kw)
     for key in ("pred_clusters", "folds", "viE", "per_member_k", "per_member_maxsil"):
         np.testing.assert_array_equal(getattr(a, key), getattr(b, key), err_msg=key)
+
+
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def _launches_under(prof, name):
+    """The CUDA launch calls inside each host span `name` of a profile."""
+    events = prof.events()
+    starts = [e.time_range.start for e in events if e.name in _LAUNCH_CALLS]
+    spans = [e for e in events if e.name == name and str(e.device_type).endswith("CPU")]
+    return [sum(sp.time_range.start <= t <= sp.time_range.end for t in starts) for sp in spans]
+
+
+# Last in the file: its profiles around unprofiled fold passes leave the
+# process's later profiles without device kernels (PERF.md section 7).
+def test_fold_selection_launches(dev, monkeypatch):
+    """A fold program on the card: each selection (the members' and
+    wMetaC's) launches each sweep kernel once and counts its lanes as
+    `select.kernel_lanes`. Under each `sharp.fold.select` and
+    `sharp.fold.wmetac.meta.select` span the sweep, everything but the rule
+    chain, makes at most 45 CUDA launches (the kernels and the torch
+    preamble); the plain sweep made ~1,800. The rule chain's own launches
+    are counted on the same lanes with the sweep's scores given."""
+    import os
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synth import make_tpm_like
+
+    from sharp_tpu_torch.config import resolve_config
+    from sharp_tpu_torch.core.fold import fold_program, fold_static_args
+    from sharp_tpu_torch.ops import select, silhouette
+    from sharp_tpu_torch.utils import timers
+
+    G, B, genes = 4, 512, 300
+    X, _ = make_tpm_like(n_cells=G * 480, n_genes=genes, n_types=5, seed=4)
+    cfg = resolve_config(G * 480, genes, rN_seed=1, ensize_K=5)
+    Xg = torch.zeros(G, B, genes)
+    Xg[:, :480] = torch.from_numpy(X.reshape(G, 480, genes))
+    masks = (torch.arange(B) < 480).expand(G, B).contiguous()
+    R = torch.sign(torch.randn((genes, 5 * cfg.reduced_ndim), generator=torch.Generator().manual_seed(0)))
+
+    def profiled():
+        fold_program(Xg.to(dev), masks.to(dev), [480] * G, R.to(dev), True, **fold_static_args(cfg))
+        torch.cuda.synchronize()
+        timers.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fold_program(Xg.to(dev), masks.to(dev), [480] * G, R.to(dev), True, **fold_static_args(cfg))
+            torch.cuda.synchronize()
+        return prof, timers.snapshot()["sums"]
+
+    spans = ("sharp.fold.select", "sharp.fold.wmetac.meta.select")
+    before = dict(silhouette.LAUNCHES)
+    prof, sums = profiled()
+    assert {k: silhouette.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 2 * 2)
+    assert sums["select.kernel_lanes"] == G * 5 + G and not sums.get("select.plain_lanes")
+    kernels = {name: _launches_under(prof, name) for name in spans}
+    # the rule chain alone: the sweep's scores handed in
+    scores = {}
+    real_sweep = silhouette.sweep_scores_nested
+
+    def given(D_real, *a, **k):
+        key = tuple(D_real.shape)
+        if key not in scores:
+            scores[key] = real_sweep(D_real, *a, **k)
+        return scores[key]
+
+    monkeypatch.setattr(select, "sweep_scores_nested", given)
+    chain = {name: _launches_under(profiled()[0], name) for name in spans}
+    monkeypatch.setattr(select, "sweep_scores_nested", silhouette.sweep_scores_nested_plain)
+    plain = {name: _launches_under(profiled()[0], name) for name in spans}
+    print(f"CUDA launches a selection: kernels {kernels}, the rule chain alone {chain}, plain sweep {plain}")
+    for name in spans:
+        assert len(kernels[name]) == len(chain[name]) == len(plain[name]) == 1, name
+        sweep = kernels[name][0] - chain[name][0]
+        assert 3 <= sweep <= 45, (name, kernels[name], chain[name])
+        assert plain[name][0] - chain[name][0] > 20 * sweep, (name, plain[name], chain[name])
