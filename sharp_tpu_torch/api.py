@@ -52,6 +52,23 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def stack_rm(rM, want, note: str = "") -> torch.Tensor:
+    """The reference's `rM` (R/SHARP.R:541-549; a list of K (genes, p)
+    matrices or one stacked (genes, K * p) array, numpy or torch) as one
+    stacked tensor, which must have the shape `want`; `note` ends the
+    error's explanation."""
+    def as_tensor(m):
+        return m if isinstance(m, torch.Tensor) else torch.from_numpy(np.array(m))
+
+    R_all = torch.cat([as_tensor(m) for m in rM], dim=1) if isinstance(rM, (list, tuple)) else as_tensor(rM)
+    if tuple(R_all.shape) != tuple(want):
+        raise ValueError(
+            f"rM has shape {tuple(R_all.shape)}, expected {tuple(want)} "
+            f"(genes x ensize_K * reduced_ndim{', ' + note if note else ''})"
+        )
+    return R_all
+
+
 def sharp(
     X: np.ndarray,
     *,
@@ -106,20 +123,8 @@ def sharp(
 
         R_all = None
         if rM is not None:
-            def as_tensor(m):
-                return m if isinstance(m, torch.Tensor) else torch.from_numpy(np.array(m))
-
-            if isinstance(rM, (list, tuple)):
-                R_all = torch.cat([as_tensor(m) for m in rM], dim=1)
-            else:
-                R_all = as_tensor(rM)
-            want = (X.shape[1], cfg.ensize_K * cfg.reduced_ndim)
-            if tuple(R_all.shape) != want:
-                raise ValueError(
-                    f"rM has shape {tuple(R_all.shape)}, expected {want} "
-                    "(genes x ensize_K * reduced_ndim, after preprocessing "
-                    "— pass prep=False to keep the gene dimension fixed)"
-                )
+            R_all = stack_rm(rM, (X.shape[1], cfg.ensize_K * cfg.reduced_ndim),
+                             "after preprocessing — pass prep=False to keep the gene dimension fixed")
 
         if cfg.is_small:
             return sharp_small(

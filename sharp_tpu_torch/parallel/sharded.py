@@ -128,6 +128,8 @@ def _sweep_shape(cfg: SharpConfig) -> dict:
 FOLD_TIMING_KEYS = ("slice_s", "transfer_s", "device_s", "readback_s")
 # the dense feed's host seconds, added up on every call with no synchronise
 FEED_KEYS = ("slice_s", "transfer_s")
+# the sparse feed's: the caller's waits for a staged group besides
+SPARSE_FEED_KEYS = FEED_KEYS + ("wait_s",)
 
 
 def _now(timing: Optional[dict]) -> float:
@@ -282,12 +284,21 @@ def _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing, fe
                 staged = pool.submit(stage, gi + 1, slots)
 
 
-def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype, timing):
+def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype, timing, feed=None):
     """Per group: (fold sizes, folds densified on dev with log2 applied,
     False). Group g is sliced into staging set g % 2 on a worker thread
     while the caller runs group g - 1; on a card the sets are page-locked
     and copied without blocking, and a set is refilled only after the copy
-    out of it has finished. `timing` counts the densify as device time."""
+    out of it has finished. `timing` counts the densify as device time.
+
+    `feed` (a dict) adds up `SPARSE_FEED_KEYS`, host seconds read with no
+    synchronise: the worker's slicing, the copies' calls and the caller's
+    waits for a staged group (the span `fold_pass.wait`, the feed's
+    exposed part). While tracing, the tracer sums the nonzeros of the
+    groups (`feed.nnz`), the bytes of the triplet buffers copied to dev
+    (`feed.wire_bytes`), of those the ones copied from page-locked memory
+    (`feed.wire_pinned_bytes`), and the bytes of the dense folds written
+    on dev (`feed.dense_bytes`)."""
     from sharp_tpu_torch.io.sparse import densify_folds, fold_triplets, nnz_pad, wire_buffers
 
     T = len(sizes)
@@ -301,18 +312,20 @@ def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype, ti
         gsizes = [int(s) for s in sizes[g0 : g0 + group]]
         if copied[gi % 2] is not None:
             copied[gi % 2].synchronize()
-        t0 = _now(timing)
+        t0 = time.perf_counter()
         with span("fold_pass.slice"):
             starts = [int(offsets[g0 + j]) for j in range(len(gsizes))]
             host = fold_triplets(sb, starts, gsizes, block_pad, budget, wire_dtype, out=sets[gi % 2])
-        return gsizes, host, _now(timing) - t0
+        return gsizes, host, time.perf_counter() - t0
 
     n_groups = (T + group - 1) // group
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         staged = pool.submit(stage, 0)
         for gi in range(n_groups):
-            gsizes, host, slice_s = staged.result()
-            t1 = _now(timing)
+            t0 = time.perf_counter()
+            with span("fold_pass.wait"):
+                gsizes, host, slice_s = staged.result()
+            t1 = time.perf_counter()
             with span("fold_pass.transfer"):
                 data = [t.to(dev, non_blocking=True) for t in host]
                 if cuda:
@@ -322,6 +335,9 @@ def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype, ti
                     _sync(dev)
                     timing["slice_s"] += slice_s
                     timing["transfer_s"] += _now(timing) - t1
+            if feed is not None:
+                for k, v in zip(SPARSE_FEED_KEYS, (slice_s, time.perf_counter() - t1, t1 - t0)):
+                    feed[k] = feed.get(k, 0.0) + v
             if gi + 1 < n_groups:
                 staged = pool.submit(stage, gi + 1)
             t2 = _now(timing)
@@ -331,6 +347,13 @@ def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype, ti
                 if timing is not None:
                     _sync(dev)
                     timing["device_s"] += _now(timing) - t2
+            if tracing():
+                g0 = gi * group
+                wire = sum(t.nbytes for t in host)
+                add("feed.nnz", int(sb.indptr[offsets[g0 + len(gsizes)]] - sb.indptr[offsets[g0]]))
+                add("feed.wire_bytes", wire)
+                add("feed.wire_pinned_bytes", wire if cuda and all(t.is_pinned() for t in host) else 0)
+                add("feed.dense_bytes", Xg.nbytes)
             yield gsizes, Xg, False
 
 
@@ -342,12 +365,13 @@ def _fold_groups(
     offsets[t] of X, or of `rows`), `group` folds per call on dev. `ens`
     replaces the fold program of a group by the ensemble split. `timing`
     (a dict of `FOLD_TIMING_KEYS`) adds up the parts of the pass, the card
-    synchronised after each; `feed` (a dict of `FEED_KEYS`) the dense
-    feed's host seconds, with no synchronise."""
+    synchronised after each; `feed` (a dict of `FEED_KEYS`) the feed's
+    host seconds, with no synchronise (the sparse feed's
+    `SPARSE_FEED_KEYS`)."""
     from sharp_tpu_torch.io.sparse import SparseBlock
 
     if isinstance(X, SparseBlock):
-        groups = _sparse_feed(X, sizes, offsets, group, block_pad, logf, dev, wire_dtype, timing)
+        groups = _sparse_feed(X, sizes, offsets, group, block_pad, logf, dev, wire_dtype, timing, feed)
     else:
         groups = _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing, feed)
     static = fold_static_args(cfg)
@@ -416,7 +440,8 @@ def process_folds_grouped(
     the summaries' readback. Without it a profiler sees the same four parts
     as the spans `sharp.fold_pass.{slice,transfer,device,readback}`, on its
     own clock and with no synchronise. `feed`, a dict of `FEED_KEYS`, adds
-    up the dense feed's host seconds on every call, with no synchronise.
+    up the feed's host seconds on every call, with no synchronise (a
+    SparseBlock's feed adds `SPARSE_FEED_KEYS`).
     """
     dev = torch.device(device)
     T = len(sizes)
@@ -584,8 +609,8 @@ def process_folds_sharded(
     with concurrent.futures.ThreadPoolExecutor(n_data) as pool:
         parts = list(pool.map(data_shard, range(n_data)))
     if feed is not None:
-        for k in FEED_KEYS:
-            feed[k] += sum(f[k] for f in shard_feeds)
+        for k in set().union(*shard_feeds):
+            feed[k] = feed.get(k, 0.0) + sum(f.get(k, 0.0) for f in shard_feeds)
     log(f"sharded fold pass: {T} folds over {n_data} data shards"
         + (f" x {n_ens} ens shards" if n_ens > 1 else ""))
     return [fr for part in parts for fr in part]
@@ -600,7 +625,8 @@ def process_folds(
     `mesh` for two or more folds (`process_folds_sharded`), else the grouped
     loop on `device` (`process_folds_grouped`), as the JAX package's
     `sharp_large` and `_fold_pass` choose. `feed`, a dict of `FEED_KEYS`,
-    adds up the dense feed's host seconds."""
+    adds up the feed's host seconds (a SparseBlock's feed adds
+    `SPARSE_FEED_KEYS`)."""
     if mesh is not None and len(sizes) > 1:
         return process_folds_sharded(X, sizes, block_pad, R_all, cfg, logf, mesh, rows=rows,
                                      wire_dtype=wire_dtype, group=group, feed=feed)

@@ -56,18 +56,41 @@ def _config_fingerprint(cfg: SharpConfig, wire_dtype: str = "float32") -> str:
 
 
 def _fold_pass(Xb, cfg: SharpConfig, R_all, logf: bool, device, mesh=None,
-               group: Optional[int] = None, wire_dtype: str = "float32"):
+               group: Optional[int] = None, wire_dtype: str = "float32", feed: Optional[dict] = None):
     """One block's fold pass -> list of per-fold summaries. Xb is a dense
     (cells, genes) array or a SparseBlock. With a mesh, a block of two or
     more folds fans its folds out over the mesh (the JAX package's
-    `_fold_pass`, :72-87; `parallel/sharded.process_folds`)."""
+    `_fold_pass`, :72-87; `parallel/sharded.process_folds`). `feed` adds
+    up the feed's host seconds (`process_folds`)."""
     from sharp_tpu_torch.io.sparse import SparseBlock
     from sharp_tpu_torch.parallel.sharded import process_folds
 
     sizes = fold_sizes(Xb.shape[0], cfg.partition_ncells)
     X = Xb if isinstance(Xb, SparseBlock) else np.asarray(Xb, np.float32)
     return process_folds(X, sizes, pad_dim(max(sizes)), R_all, cfg, logf, device, mesh, group=group,
-                         wire_dtype=wire_dtype)
+                         wire_dtype=wire_dtype, feed=feed)
+
+
+# what each fold's summary leaves in the result's diagnostics
+_FOLD_DIAGNOSTICS = ("finalC", "cent_sum", "counts", "k_per", "maxsil")
+
+
+def _fold_diagnostics(blocks_folds) -> dict:
+    """The result's per-fold diagnostics over the blocks' folds, in block
+    order (`sharp_unlimited`), or none where a block has no folds here
+    (resumed from its manifest)."""
+    if not blocks_folds or any(b is None for b in blocks_folds):
+        return {}
+    frs = [fr for b in blocks_folds for fr in b]
+    sizes = [len(fr["finalC"]) for fr in frs]
+    return dict(
+        folds=np.repeat(np.arange(len(frs), dtype=np.int32), sizes),
+        per_member_k=np.stack([fr["k_per"] for fr in frs]),
+        per_member_maxsil=np.stack([fr["maxsil"] for fr in frs]),
+        fold_labels=np.concatenate([fr["finalC"] for fr in frs]).astype(np.int32),
+        fold_cent_sum=np.stack([fr["cent_sum"] for fr in frs]),
+        fold_counts=np.stack([fr["counts"] for fr in frs]),
+    )
 
 
 def _block_summary(fres):
@@ -218,6 +241,7 @@ def sharp_unlimited(
     group: Optional[int] = None,
     wire_dtype: str = "float32",
     device="cuda",
+    rM: Optional[object] = None,
     **knobs,
 ) -> SharpResult:
     """Blocked / out-of-core clustering ~ SHARP_unlimited{,2,3} on `device`.
@@ -237,6 +261,23 @@ def sharp_unlimited(
     folds per fold-program call (default: from free device memory,
     `parallel/sharded.auto_group`). The other knobs are those of `sharp`;
     `n_devices > 1` runs each block's folds over a mesh of devices.
+
+    `rM` injects the K RP matrices every block shares (R/SHARP_unlimited.R
+    draws them once, :96-105), as `sharp()`'s
+    `rM` does: a list of K (genes, p) matrices or one stacked (genes,
+    K * p) array, numpy or torch; by default they are drawn from
+    `rN_seed` on `device`.
+
+    Besides the labels, the result holds the large tier's diagnostics over
+    the returned cells, in block order: `folds` (each cell's fold, numbered
+    across the blocks), `per_member_k` and `per_member_maxsil` (T, K), and
+    the block fuses' inputs: `fold_labels` (each cell's fold consensus),
+    `fold_cent_sum` (T, nc_pad, p) and `fold_counts` (T, nc_pad), each
+    fold's summary. These are None where a block was resumed from its
+    manifest. `block_labels` holds each cell's cluster of its block's fuse
+    (0..C_b - 1). `timing["fold_pass"]` adds up the feeds' host seconds
+    (`parallel/sharded.FEED_KEYS`, and `SPARSE_FEED_KEYS` with the sparse
+    feed), read with no synchronise.
 
     With `multihost=True`, each process of a `torch.distributed` group
     (torchrun's variables, `parallel/multihost.distributed_init`; one
@@ -273,7 +314,7 @@ def sharp_unlimited(
             b = blocks[0]
             # scipy sparse -> dense (np.asarray would wrap it 0-d)
             X1 = b.toarray() if hasattr(b, "tocsr") else np.asarray(b)
-            return sharp(X1, device=dev, **knobs)
+            return sharp(X1, rM=rM, device=dev, **knobs)
         n_blocks = len(blocks)
         n_cells = n_cells or sum(b.shape[0] for b in blocks)
         n_genes = n_genes or blocks[0].shape[1]
@@ -321,10 +362,13 @@ def sharp_unlimited(
         os.makedirs(manifest_dir, exist_ok=True)
 
     with timer.stage("rp_setup"):
-        R_all = ensemble_rp_matrix(
-            rN_seed, cfg.ensize_K, n_genes, cfg.reduced_ndim,
-            dtype=getattr(torch, cfg.dtype_compute), device=dev,
-        )
+        dtype = getattr(torch, cfg.dtype_compute)
+        if rM is None:
+            R_all = ensemble_rp_matrix(rN_seed, cfg.ensize_K, n_genes, cfg.reduced_ndim, dtype=dtype, device=dev)
+        else:
+            from sharp_tpu_torch.api import stack_rm
+
+            R_all = stack_rm(rM, (n_genes, cfg.ensize_K * cfg.reduced_ndim)).to(dev, dtype)
 
     def load_block(i):
         from sharp_tpu_torch.io.sparse import SparseBlock
@@ -349,11 +393,14 @@ def sharp_unlimited(
 
     # --- per-block pass with prefetch + manifest resume ------------------
     from sharp_tpu_torch.parallel.mesh import resolve_mesh
+    from sharp_tpu_torch.parallel.sharded import FEED_KEYS
 
     mesh = resolve_mesh(cfg, dev)
     R_view = _view_rp_matrix(cfg, rN_seed, dev) if cfg.forview else None
     results_by_block = {}
+    folds_by_block = {}   # block index -> its folds' diagnostics, where the block ran its fold pass
     pending = []  # (block index, fold summaries) awaiting their fuse
+    feed = dict.fromkeys(FEED_KEYS, 0.0)
 
     def fuse_pending():
         if not pending:
@@ -389,10 +436,11 @@ def sharp_unlimited(
                     nxt = next((j for j in my_blocks if j > i and want(j)), None)
                     future = pool.submit(load_block, nxt) if nxt is not None else None
                     prefetched_for = nxt
-                    pending.append(
-                        (i, _fold_pass(Xb, cfg, R_all, logf, dev, mesh, group=group, wire_dtype=wire_dtype))
-                    )
-                    del Xb
+                    frs = _fold_pass(Xb, cfg, R_all, logf, dev, mesh, group=group, wire_dtype=wire_dtype,
+                                     feed=feed)
+                    folds_by_block[i] = [{k: fr[k] for k in _FOLD_DIAGNOSTICS} for fr in frs]
+                    pending.append((i, frs))
+                    del Xb, frs
                     if len(pending) >= fuse_batch:
                         fuse_pending()
                 finally:
@@ -444,6 +492,9 @@ def sharp_unlimited(
         viE_all = np.concatenate(viE_parts, axis=0) if viE_parts else None
         vals = np.arange(1, n_glob + 1)  # global ids, size-ordered
         cnts = meta_sizes[order].astype(np.int64)
+        diagnostics = _fold_diagnostics([folds_by_block.get(i) for i in my_blocks])
+        block_labels = (np.concatenate([labels for labels, *_ in block_results]).astype(np.int32)
+                        if block_results else None)
 
     return SharpResult(
         pred_clusters=final,
@@ -453,5 +504,7 @@ def sharp_unlimited(
         viE=viE_all,
         x0=x0_all,
         paras=cfg.as_dict(),
-        timing=timer.as_dict(),
+        timing={**timer.as_dict(), "fold_pass": feed},
+        block_labels=block_labels,
+        **diagnostics,
     )

@@ -30,6 +30,11 @@ class SharpResult:
     per_member_k: Optional[np.ndarray] = None
     per_member_maxsil: Optional[np.ndarray] = None
     folds: Optional[np.ndarray] = None  # (n,) fold index per cell (large path)
+    # sharp_unlimited's fuse inputs; the fold ones where every block ran its fold pass
+    block_labels: Optional[np.ndarray] = None    # (n,) each cell's cluster of its block's fuse, 0..C_b-1
+    fold_labels: Optional[np.ndarray] = None     # (n,) each cell's fold consensus (wMetaC) label
+    fold_cent_sum: Optional[np.ndarray] = None   # (T, nc_pad, p) each fold's centroid sums by fold label
+    fold_counts: Optional[np.ndarray] = None     # (T, nc_pad) each fold's cells by fold label
 
     def summary(self) -> str:
         lines = [
