@@ -43,14 +43,17 @@ class SparseBlock(NamedTuple):
 
     @classmethod
     def from_scipy(cls, X) -> "SparseBlock":
+        """The block of a scipy sparse matrix, canonicalised in place (as
+        scipy does); its ids and values are shared, not copied, where they
+        are int32 and float32 already, as `from_sblk` shares its mapping."""
         csr = X.tocsr()
         csr.sum_duplicates()
         csr.sort_indices()
         return cls(
             n=csr.shape[0], g=csr.shape[1],
             indptr=csr.indptr.astype(np.int64),
-            indices=csr.indices.astype(np.int32),
-            data=csr.data.astype(np.float32),
+            indices=csr.indices.astype(np.int32, copy=False),
+            data=csr.data.astype(np.float32, copy=False),
         )
 
     @classmethod
@@ -85,19 +88,25 @@ def nnz_pad(nnz: int, step: int = 1 << 19) -> int:
     return max(step, ((nnz + step - 1) // step) * step)
 
 
+def wire_dtypes(genes: int, wire_dtype: str = "float32") -> Tuple[torch.dtype, torch.dtype]:
+    """(cols, vals) dtypes of the wire: int16 holding uint16 ids (int32 past
+    65536 genes), and float32 or bfloat16."""
+    if wire_dtype not in WIRE_DTYPES:
+        raise ValueError(f"unknown wire_dtype {wire_dtype!r} (one of {WIRE_DTYPES})")
+    cdt = torch.int16 if genes <= np.iinfo(np.uint16).max + 1 else torch.int32
+    return cdt, torch.bfloat16 if wire_dtype == "bfloat16" else torch.float32
+
+
 def wire_buffers(
     G: int, block_pad: int, budget: int, genes: int, wire_dtype: str = "float32",
     pin: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Host tensors (counts, cols, vals) for the wire of G folds:
-    counts (G, block_pad) int32, cols (G, budget) int16 holding uint16 ids
-    (int32 past 65536 genes), vals (G, budget) float32 or bfloat16. `pin`
-    allocates page-locked memory (for copies to a card); cols and vals
-    are left unset, only the first nnz entries of a fold are ever read."""
-    if wire_dtype not in WIRE_DTYPES:
-        raise ValueError(f"unknown wire_dtype {wire_dtype!r} (one of {WIRE_DTYPES})")
-    cdt = torch.int16 if genes <= np.iinfo(np.uint16).max + 1 else torch.int32
-    vdt = torch.bfloat16 if wire_dtype == "bfloat16" else torch.float32
+    counts (G, block_pad) int32, cols (G, budget) and vals (G, budget) of
+    `wire_dtypes`. `pin` allocates page-locked memory (for copies to a
+    card); cols and vals are left unset, only the first nnz entries of a
+    fold are ever read."""
+    cdt, vdt = wire_dtypes(genes, wire_dtype)
     return (
         torch.zeros((G, block_pad), dtype=torch.int32, pin_memory=pin),
         torch.empty((G, budget), dtype=cdt, pin_memory=pin),

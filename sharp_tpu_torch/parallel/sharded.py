@@ -14,7 +14,10 @@ fold-sized host slots, page-locked on a card and reused across calls, and
 each slot is copied without blocking into its lane of the group on the
 device. A `SparseBlock` ships each group as CSR triplets and is densified
 on the device (`io/sparse.py`), with log2(1 + x) applied to the values
-there.
+there; its groups are sliced into two wire sets, reused across calls, and
+copied on a stream of their own by a `SparsePipeline`, which a
+`sharp_unlimited` call holds for all its blocks, so that each block's
+first group is staged while the previous block's last group runs.
 
 On a mesh (`parallel/mesh.py`) each data shard takes a contiguous slice of
 the folds and runs the same grouped loop on its own host thread, under a
@@ -43,7 +46,7 @@ import sys
 import threading
 import time
 import warnings
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -284,82 +287,263 @@ def _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing, fe
                 staged = pool.submit(stage, gi + 1, slots)
 
 
-def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, dev, wire_dtype, timing, feed=None):
-    """Per group: (fold sizes, folds densified on dev with log2 applied,
-    False). Group g is sliced into staging set g % 2 on a worker thread
-    while the caller runs group g - 1; on a card the sets are page-locked
-    and copied without blocking, and a set is refilled only after the copy
-    out of it has finished. `timing` counts the densify as device time.
+# device -> the (wire sets, copy stream) no sparse pipeline holds, kept for
+# the next: the caching allocator reuses the device wires it allocated on
+# the stream
+_FREE_WIRE: dict = {}
+_FREE_WIRE_LOCK = threading.Lock()
 
-    `feed` (a dict) adds up `SPARSE_FEED_KEYS`, host seconds read with no
-    synchronise: the worker's slicing, the copies' calls and the caller's
-    waits for a staged group (the span `fold_pass.wait`, the feed's
-    exposed part). While tracing, the tracer sums the nonzeros of the
-    groups (`feed.nnz`), the bytes of the triplet buffers copied to dev
-    (`feed.wire_bytes`), of those the ones copied from page-locked memory
-    (`feed.wire_pinned_bytes`), and the bytes of the dense folds written
-    on dev (`feed.dense_bytes`)."""
-    from sharp_tpu_torch.io.sparse import densify_folds, fold_triplets, nnz_pad, wire_buffers
 
-    T = len(sizes)
-    budget = nnz_pad(max(int(sb.indptr[offsets[t] + sizes[t]] - sb.indptr[offsets[t]]) for t in range(T)))
-    cuda = dev.type == "cuda"
-    sets = [wire_buffers(group, block_pad, budget, sb.g, wire_dtype, pin=cuda) for _ in range(2)]
-    copied = [None, None]   # CUDA event after the copy out of each set
+class _WireSet:
+    """Host bytes for one fold group's wire (counts, cols, vals), page-locked
+    on a card and grown only where a group needs more, and the CUDA event
+    after the last copy out of them."""
 
-    def stage(gi):
-        g0 = gi * group
-        gsizes = [int(s) for s in sizes[g0 : g0 + group]]
-        if copied[gi % 2] is not None:
-            copied[gi % 2].synchronize()
+    def __init__(self):
+        self.bufs = [torch.empty(0, dtype=torch.uint8)] * 3
+        self.copied = None
+
+    def views(self, G: int, group: int, wire, pin: bool):
+        """(G, width) views of the given (width, dtype)s, each contiguous
+        at the start of its buffer, and whether a buffer had to be made:
+        one that holds `group` rows, so a block's short last group fits."""
+        made, out = False, []
+        for j, (width, dtype) in enumerate(wire):
+            if self.bufs[j].numel() < group * width * dtype.itemsize:
+                self.bufs[j] = torch.empty(group * width * dtype.itemsize, dtype=torch.uint8, pin_memory=pin)
+                made = True
+            out.append(self.bufs[j][: G * width * dtype.itemsize].view(dtype).view(G, width))
+        return out, made
+
+
+class _Block(NamedTuple):
+    """A SparseBlock's fold groups as the sparse feed stages them."""
+
+    sb: object
+    sizes: tuple
+    offsets: np.ndarray
+    group: int
+    block_pad: int
+    budget: int     # nonzeros a fold's wire holds: the block's largest fold, padded
+
+    @classmethod
+    def of(cls, sb, sizes, offsets, group, block_pad):
+        from sharp_tpu_torch.io.sparse import nnz_pad
+
+        sizes = tuple(int(s) for s in sizes)
+        budget = nnz_pad(max(int(sb.indptr[offsets[t] + sizes[t]] - sb.indptr[offsets[t]])
+                             for t in range(len(sizes))))
+        return cls(sb, sizes, offsets, group, block_pad, budget)
+
+    def same(self, other: "_Block") -> bool:
+        return (self.sb is other.sb and self.sizes == other.sizes and self.group == other.group
+                and self.block_pad == other.block_pad and self.budget == other.budget)
+
+
+class _Staged(NamedTuple):
+    gsizes: list
+    host: list      # the wire in a set's views
+    data: list      # the wire on the device (the views themselves on the CPU)
+    ready: object   # the CUDA event after its copies, or None
+    slice_s: float
+    transfer_s: float
+
+
+class SparsePipeline:
+    """The sparse feed's staging, one for a `sharp_unlimited` call (or, where
+    no caller holds one, for one block's fold pass): a worker thread, and
+    two wire sets with a copy stream (on a card), taken from the free ones
+    of the device and given back after.
+
+    The worker stages the fold groups in order: it slices a group's wire
+    into the next set, once the copy out of it has finished, and issues the
+    set's copy to the device without blocking on the copy stream, with an
+    event the caller's stream waits on. `upcoming`, which the caller sets
+    per block, returns what `sparse_plan` gives for the block that runs
+    next (it may wait for that block's load); when the caller takes a
+    block's last group, the worker goes on to that block's first group, so
+    that it is sliced and copied beside the last group's fold program and
+    the caller's work between the blocks. Groups never straddle blocks."""
+
+    def __init__(self, dev, wire_dtype: str = "float32"):
+        dev = torch.device(dev)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.dev, self.wire_dtype, self.cuda = dev, wire_dtype, dev.type == "cuda"
+        with _FREE_WIRE_LOCK:
+            free = _FREE_WIRE.get(dev)
+            self.sets, self.stream = free.pop() if free else (None, None)
+        if self.sets is None:
+            self.sets = [_WireSet(), _WireSet()]
+            self.stream = torch.cuda.Stream(device=dev) if self.cuda else None
+        self.turn = 0           # the set the worker fills next, alternating
+        self.pool = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="sparse-feed")
+        self.upcoming: Optional[Callable] = None
+        self.ahead = None       # the future of the next block's first group, staged ahead
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def close(self) -> None:
+        """Let the worker finish and give the sets back; a group staged and
+        never taken is dropped (its set is refilled after its copy's event)."""
+        self.ahead = self.upcoming = None
+        self.pool.shutdown(wait=True)
+        with _FREE_WIRE_LOCK:
+            _FREE_WIRE.setdefault(self.dev, []).append((self.sets, self.stream))
+
+    def submit(self, blk: _Block, gi: int, timing: Optional[dict]):
+        return self.pool.submit(self._stage, blk, gi, timing)
+
+    def look_ahead(self) -> None:
+        """The next job: the first group of the block `upcoming` names."""
+        upcoming, self.upcoming = self.upcoming, None
+        if upcoming is not None:
+            self.ahead = self.pool.submit(self._stage_upcoming, upcoming)
+
+    def take_ahead(self, blk: _Block) -> Optional[_Staged]:
+        """blk's first group where it was staged ahead, else None (waits for
+        a group staged ahead; one staged for another block is dropped)."""
+        ahead, self.ahead = self.ahead, None
+        got = ahead.result() if ahead is not None else None
+        if got is None or not got[0].same(blk):
+            return None
+        add("feed.block_first_ahead", 1)
+        return got[1]
+
+    def _stage_upcoming(self, upcoming):
+        try:
+            plan = upcoming()
+        except Exception:   # the block's load failed: the caller raises it when it reads the block itself
+            return None
+        if plan is None:
+            return None
+        sb, sizes, block_pad, group = plan
+        blk = _Block.of(sb, sizes, np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64), group, block_pad)
+        return blk, self._stage(blk, 0, None)
+
+    def _stage(self, blk: _Block, gi: int, timing: Optional[dict]) -> _Staged:
+        from sharp_tpu_torch.io.sparse import fold_triplets, wire_dtypes
+
+        g0 = gi * blk.group
+        gsizes = list(blk.sizes[g0 : g0 + blk.group])
+        G, sb = len(gsizes), blk.sb
+        ws = self.sets[self.turn % 2]
+        self.turn += 1
+        if ws.copied is not None:
+            ws.copied.synchronize()
         t0 = time.perf_counter()
         with span("fold_pass.slice"):
-            starts = [int(offsets[g0 + j]) for j in range(len(gsizes))]
-            host = fold_triplets(sb, starts, gsizes, block_pad, budget, wire_dtype, out=sets[gi % 2])
-        return gsizes, host, time.perf_counter() - t0
+            cdt, vdt = wire_dtypes(sb.g, self.wire_dtype)
+            views, made = ws.views(G, blk.group, ((blk.block_pad, torch.int32), (blk.budget, cdt), (blk.budget, vdt)),
+                                   self.cuda)
+            if made:
+                add("feed.wire_sets_made", 1)
+            starts = [int(blk.offsets[g0 + j]) for j in range(G)]
+            host = fold_triplets(sb, starts, gsizes, blk.block_pad, blk.budget, self.wire_dtype, out=views)
+        t1 = time.perf_counter()
+        ready = None
+        with span("fold_pass.transfer"), _on(self.dev, self.stream):
+            data = [t.to(self.dev, non_blocking=True) for t in host]
+            if self.cuda:
+                ready = ws.copied = torch.cuda.Event()
+                ready.record()
+                if timing is not None:
+                    self.stream.synchronize()
+        return _Staged(gsizes, host, data, ready, t1 - t0, time.perf_counter() - t1)
 
-    n_groups = (T + group - 1) // group
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        staged = pool.submit(stage, 0)
-        for gi in range(n_groups):
-            t0 = time.perf_counter()
-            with span("fold_pass.wait"):
-                gsizes, host, slice_s = staged.result()
-            t1 = time.perf_counter()
-            with span("fold_pass.transfer"):
-                data = [t.to(dev, non_blocking=True) for t in host]
-                if cuda:
-                    copied[gi % 2] = torch.cuda.Event()
-                    copied[gi % 2].record()
-                if timing is not None:
-                    _sync(dev)
-                    timing["slice_s"] += slice_s
-                    timing["transfer_s"] += _now(timing) - t1
-            if feed is not None:
-                for k, v in zip(SPARSE_FEED_KEYS, (slice_s, time.perf_counter() - t1, t1 - t0)):
-                    feed[k] = feed.get(k, 0.0) + v
-            if gi + 1 < n_groups:
-                staged = pool.submit(stage, gi + 1)
-            t2 = _now(timing)
-            with span("fold_pass.device"):
-                Xg = densify_folds(*data, block_pad=block_pad, genes=sb.g, log2p1=logf)
-                del data
-                if timing is not None:
-                    _sync(dev)
-                    timing["device_s"] += _now(timing) - t2
-            if tracing():
-                g0 = gi * group
-                wire = sum(t.nbytes for t in host)
-                add("feed.nnz", int(sb.indptr[offsets[g0 + len(gsizes)]] - sb.indptr[offsets[g0]]))
-                add("feed.wire_bytes", wire)
-                add("feed.wire_pinned_bytes", wire if cuda and all(t.is_pinned() for t in host) else 0)
-                add("feed.dense_bytes", Xg.nbytes)
-            yield gsizes, Xg, False
+
+def sparse_plan(X, sizes, block_pad: int, cfg: SharpConfig, device, mesh=None, group: Optional[int] = None):
+    """What the grouped pass of `process_folds` stages for X: (X, its fold
+    sizes, block_pad, the group size `process_folds_grouped` takes), or
+    None where X is dense or its folds go over the mesh."""
+    from sharp_tpu_torch.io.sparse import SparseBlock
+
+    if not isinstance(X, SparseBlock) or (mesh is not None and len(sizes) > 1):
+        return None
+    if group is None:
+        group = auto_group(block_pad, X.g, True, K=cfg.ensize_K, device=torch.device(device), **_sweep_shape(cfg))
+    return X, list(sizes), block_pad, max(1, min(group, len(sizes)))
+
+
+def _sparse_feed(sb, sizes, offsets, group, block_pad, logf, pipe: SparsePipeline, timing, feed=None):
+    """Per group: (fold sizes, folds densified on dev with log2 applied,
+    False), staged by `pipe` (`SparsePipeline`): group g + 1 is sliced and
+    copied on its worker while the caller runs group g, and when the caller
+    takes the last group the worker goes on to the next block's first. The
+    caller's stream waits for a group's copies and densifies it. Each
+    group's wire is a contiguous (G, budget) view of a set, budget the
+    block's largest fold's nonzeros padded (`nnz_pad`). With `timing` the
+    groups are staged in turn, none ahead, the card synchronised after each
+    part, the densify counted as device time.
+
+    `feed` (a dict) adds up `SPARSE_FEED_KEYS`, host seconds read with no
+    synchronise: the worker's slicing, its copies' calls and the caller's
+    waits for a staged group (the span `fold_pass.wait`, the feed's exposed
+    part). While tracing, the tracer sums the nonzeros of the groups
+    (`feed.nnz`), the bytes of the triplet buffers copied to dev
+    (`feed.wire_bytes`), of those the ones copied from page-locked memory
+    (`feed.wire_pinned_bytes`), the bytes of the dense folds written on dev
+    (`feed.dense_bytes`), the blocks whose first group was staged ahead
+    (`feed.block_first_ahead`) and the wire sets made
+    (`feed.wire_sets_made`)."""
+    from sharp_tpu_torch.io.sparse import densify_folds
+
+    blk = _Block.of(sb, sizes, offsets, group, block_pad)
+    n_groups = -(-len(sizes) // group)
+    staged = None
+    for gi in range(n_groups):
+        last = gi + 1 == n_groups
+        t0 = time.perf_counter()
+        with span("fold_pass.wait"):
+            rec = staged.result() if gi else pipe.take_ahead(blk)
+            if rec is None:
+                rec = pipe.submit(blk, 0, timing).result()
+        t1 = time.perf_counter()
+        if timing is None:   # timed, the next group is staged after this one's device part
+            if last:
+                pipe.look_ahead()
+            else:
+                staged = pipe.submit(blk, gi + 1, None)
+        if pipe.cuda:
+            stream = torch.cuda.current_stream(pipe.dev)
+            stream.wait_event(rec.ready)
+            for t in rec.data:
+                t.record_stream(stream)   # not handed out again before the caller's work on it
+        for sums in (feed, timing):
+            if sums is not None:
+                sums["slice_s"] = sums.get("slice_s", 0.0) + rec.slice_s
+                sums["transfer_s"] = sums.get("transfer_s", 0.0) + rec.transfer_s
+        if feed is not None:
+            feed["wait_s"] = feed.get("wait_s", 0.0) + t1 - t0
+        t2 = _now(timing)
+        with span("fold_pass.device"):
+            Xg = densify_folds(*rec.data, block_pad=block_pad, genes=sb.g, log2p1=logf)
+            if timing is not None:
+                _sync(pipe.dev)
+                timing["device_s"] += _now(timing) - t2
+        if tracing():
+            g0 = gi * group
+            wire = sum(t.nbytes for t in rec.host)
+            add("feed.nnz", int(sb.indptr[offsets[g0 + len(rec.gsizes)]] - sb.indptr[offsets[g0]]))
+            add("feed.wire_bytes", wire)
+            add("feed.wire_pinned_bytes", wire if pipe.cuda and all(t.is_pinned() for t in rec.host) else 0)
+            add("feed.dense_bytes", Xg.nbytes)
+        gsizes = rec.gsizes
+        del rec   # the device wire goes once the densify is done with it
+        yield gsizes, Xg, False
+        if timing is not None and not last:
+            staged = pipe.submit(blk, gi + 1, timing)
 
 
 def _fold_groups(
     X, sizes, offsets, block_pad, R_all, cfg, logf, dev, group, rows, wire_dtype, indN,
     ens: Optional[Callable] = None, timing: Optional[dict] = None, feed: Optional[dict] = None,
+    pipeline: Optional[SparsePipeline] = None,
 ) -> List[dict]:
     """The summaries of the folds `sizes` (fold t starting at cell
     offsets[t] of X, or of `rows`), `group` folds per call on dev. `ens`
@@ -367,33 +551,36 @@ def _fold_groups(
     (a dict of `FOLD_TIMING_KEYS`) adds up the parts of the pass, the card
     synchronised after each; `feed` (a dict of `FEED_KEYS`) the feed's
     host seconds, with no synchronise (the sparse feed's
-    `SPARSE_FEED_KEYS`)."""
+    `SPARSE_FEED_KEYS`). A SparseBlock's groups are staged by `pipeline`,
+    the caller's `SparsePipeline`, else by one made for this pass."""
     from sharp_tpu_torch.io.sparse import SparseBlock
 
-    if isinstance(X, SparseBlock):
-        groups = _sparse_feed(X, sizes, offsets, group, block_pad, logf, dev, wire_dtype, timing, feed)
-    else:
-        groups = _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing, feed)
-    static = fold_static_args(cfg)
-    results: List[dict] = []
-    for gsizes, Xg, eff_logf in groups:
-        t0 = _now(timing)
-        with span("fold_pass.device"):
-            masks = (torch.arange(block_pad)[None, :] < torch.tensor(gsizes)[:, None]).to(dev)
-            if ens is None:
-                out = fold_program(Xg, masks, gsizes, R_all, eff_logf, indN, has_indN=indN is not None, **static)
-            else:
-                out = ens(Xg, masks, gsizes, eff_logf, indN)
-            del Xg
+    with contextlib.ExitStack() as stack:
+        if isinstance(X, SparseBlock):
+            pipe = pipeline or stack.enter_context(SparsePipeline(dev, wire_dtype))
+            groups = _sparse_feed(X, sizes, offsets, group, block_pad, logf, pipe, timing, feed)
+        else:
+            groups = _dense_feed(X, sizes, offsets, group, block_pad, rows, logf, dev, timing, feed)
+        static = fold_static_args(cfg)
+        results: List[dict] = []
+        for gsizes, Xg, eff_logf in groups:
+            t0 = _now(timing)
+            with span("fold_pass.device"):
+                masks = (torch.arange(block_pad)[None, :] < torch.tensor(gsizes)[:, None]).to(dev)
+                if ens is None:
+                    out = fold_program(Xg, masks, gsizes, R_all, eff_logf, indN, has_indN=indN is not None, **static)
+                else:
+                    out = ens(Xg, masks, gsizes, eff_logf, indN)
+                del Xg
+                if timing is not None:
+                    _sync(dev)
+                    t1 = _now(timing)
+                    timing["device_s"] += t1 - t0
+            with span("fold_pass.readback"):
+                results.extend(summaries_to_host(out, gsizes, cfg.forview))
             if timing is not None:
-                _sync(dev)
-                t1 = _now(timing)
-                timing["device_s"] += t1 - t0
-        with span("fold_pass.readback"):
-            results.extend(summaries_to_host(out, gsizes, cfg.forview))
-        if timing is not None:
-            timing["readback_s"] += _now(timing) - t1
-    return results
+                timing["readback_s"] += _now(timing) - t1
+        return results
 
 
 def _report_fold_timing(timing: dict) -> None:
@@ -425,6 +612,7 @@ def process_folds_grouped(
     device="cuda",
     rows: Optional[np.ndarray] = None,
     feed: Optional[dict] = None,
+    pipeline: Optional[SparsePipeline] = None,
 ) -> List[dict]:
     """Run the fold program over all folds, `group` folds per call, and
     return per-fold host summaries.
@@ -441,7 +629,10 @@ def process_folds_grouped(
     as the spans `sharp.fold_pass.{slice,transfer,device,readback}`, on its
     own clock and with no synchronise. `feed`, a dict of `FEED_KEYS`, adds
     up the feed's host seconds on every call, with no synchronise (a
-    SparseBlock's feed adds `SPARSE_FEED_KEYS`).
+    SparseBlock's feed adds `SPARSE_FEED_KEYS`). `pipeline`, a
+    `SparsePipeline` on `device`, stages a SparseBlock's groups (a call of
+    `sharp_unlimited` holds one for all its blocks); without it the pass
+    makes its own.
     """
     dev = torch.device(device)
     T = len(sizes)
@@ -457,7 +648,8 @@ def process_folds_grouped(
     timing = (dict.fromkeys(FOLD_TIMING_KEYS, 0.0)
               if os.environ.get("SHARP_TPU_FOLD_TIMING") == "1" else None)
     results = _fold_groups(X, list(sizes), offsets, block_pad, R_all, cfg, logf, dev,
-                           max(1, min(group, T)), rows, wire_dtype, indN, timing=timing, feed=feed)
+                           max(1, min(group, T)), rows, wire_dtype, indN, timing=timing, feed=feed,
+                           pipeline=pipeline)
     if timing is not None:
         _report_fold_timing(timing)
     return results
@@ -619,16 +811,17 @@ def process_folds_sharded(
 def process_folds(
     X, sizes: Sequence[int], block_pad: int, R_all: torch.Tensor, cfg: SharpConfig, logf: bool, device,
     mesh=None, rows: Optional[np.ndarray] = None, group: Optional[int] = None, wire_dtype: str = "float32",
-    *, feed: Optional[dict] = None,
+    *, feed: Optional[dict] = None, pipeline: Optional[SparsePipeline] = None,
 ) -> List[dict]:
     """The fold pass of the large tier and of each streamed block: over
     `mesh` for two or more folds (`process_folds_sharded`), else the grouped
     loop on `device` (`process_folds_grouped`), as the JAX package's
-    `sharp_large` and `_fold_pass` choose. `feed`, a dict of `FEED_KEYS`,
-    adds up the feed's host seconds (a SparseBlock's feed adds
-    `SPARSE_FEED_KEYS`)."""
+    `sharp_large` and `_fold_pass` choose (`sparse_plan` follows the same
+    choice). `feed`, a dict of `FEED_KEYS`, adds up the feed's host seconds
+    (a SparseBlock's feed adds `SPARSE_FEED_KEYS`); `pipeline` stages a
+    SparseBlock's groups on the grouped loop."""
     if mesh is not None and len(sizes) > 1:
         return process_folds_sharded(X, sizes, block_pad, R_all, cfg, logf, mesh, rows=rows,
                                      wire_dtype=wire_dtype, group=group, feed=feed)
     return process_folds_grouped(X, sizes, block_pad, R_all, cfg, logf, group, wire_dtype, device=device,
-                                 rows=rows, feed=feed)
+                                 rows=rows, feed=feed, pipeline=pipeline)

@@ -9,14 +9,16 @@ the final clusters are relabelled by decreasing size
 (R/SHARP_unlimited.R:179-183).
 
 Beyond the reference: the next block loads on a worker thread while the
-device clusters the current one; SBLK blocks go to the device as CSR
-triplets and are densified there (`io/sparse.py`); and each finished block
-persists its summary (labels and cluster centroids) in a manifest, so a
-killed run resumes at the last finished block. With `n_devices > 1` a
-block's folds run over a mesh of devices (`parallel/sharded.py`); with
-`multihost=True` several processes take disjoint slices of the blocks and
-meet once, at the all-gather of the block summaries
-(`parallel/multihost.py`).
+device clusters the current one; SBLK and scipy blocks go to the device as
+CSR triplets and are densified there (`io/sparse.py`), staged by one
+sparse feed for the whole call (`parallel/sharded.SparsePipeline`), which
+slices and copies the next block's first fold group while the current
+block's last group runs; and each finished block persists its summary
+(labels and cluster centroids) in a manifest, so a killed run resumes at
+the last finished block. With `n_devices > 1` a block's folds run over a
+mesh of devices (`parallel/sharded.py`); with `multihost=True` several
+processes take disjoint slices of the blocks and meet once, at the
+all-gather of the block summaries (`parallel/multihost.py`).
 """
 
 from __future__ import annotations
@@ -55,20 +57,28 @@ def _config_fingerprint(cfg: SharpConfig, wire_dtype: str = "float32") -> str:
     return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
 
+def _fold_layout(Xb, cfg: SharpConfig):
+    """(fold sizes, block_pad) of a block."""
+    sizes = fold_sizes(Xb.shape[0], cfg.partition_ncells)
+    return sizes, pad_dim(max(sizes))
+
+
 def _fold_pass(Xb, cfg: SharpConfig, R_all, logf: bool, device, mesh=None,
-               group: Optional[int] = None, wire_dtype: str = "float32", feed: Optional[dict] = None):
+               group: Optional[int] = None, wire_dtype: str = "float32", feed: Optional[dict] = None,
+               pipeline=None):
     """One block's fold pass -> list of per-fold summaries. Xb is a dense
     (cells, genes) array or a SparseBlock. With a mesh, a block of two or
     more folds fans its folds out over the mesh (the JAX package's
     `_fold_pass`, :72-87; `parallel/sharded.process_folds`). `feed` adds
-    up the feed's host seconds (`process_folds`)."""
+    up the feed's host seconds, `pipeline` stages a SparseBlock's groups
+    (`process_folds`)."""
     from sharp_tpu_torch.io.sparse import SparseBlock
     from sharp_tpu_torch.parallel.sharded import process_folds
 
-    sizes = fold_sizes(Xb.shape[0], cfg.partition_ncells)
+    sizes, block_pad = _fold_layout(Xb, cfg)
     X = Xb if isinstance(Xb, SparseBlock) else np.asarray(Xb, np.float32)
-    return process_folds(X, sizes, pad_dim(max(sizes)), R_all, cfg, logf, device, mesh, group=group,
-                         wire_dtype=wire_dtype, feed=feed)
+    return process_folds(X, sizes, block_pad, R_all, cfg, logf, device, mesh, group=group,
+                         wire_dtype=wire_dtype, feed=feed, pipeline=pipeline)
 
 
 # what each fold's summary leaves in the result's diagnostics
@@ -393,7 +403,7 @@ def sharp_unlimited(
 
     # --- per-block pass with prefetch + manifest resume ------------------
     from sharp_tpu_torch.parallel.mesh import resolve_mesh
-    from sharp_tpu_torch.parallel.sharded import FEED_KEYS
+    from sharp_tpu_torch.parallel.sharded import FEED_KEYS, SparsePipeline, sparse_plan
 
     mesh = resolve_mesh(cfg, dev)
     R_view = _view_rp_matrix(cfg, rN_seed, dev) if cfg.forview else None
@@ -417,8 +427,15 @@ def sharp_unlimited(
             log(f"block {i}: {len(labels)} cells -> {len(counts)} clusters")
         pending.clear()
 
+    def plan_of(future):
+        """What the sparse feed stages ahead for the prefetched block."""
+        def plan():
+            Xb = future.result()
+            return sparse_plan(Xb, *_fold_layout(Xb, cfg), cfg, dev, mesh, group)
+        return plan
+
     with timer.stage("block_pass"):
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool, SparsePipeline(dev, wire_dtype) as pipe:
             future, prefetched_for = None, None
             for i in my_blocks:
                 try:
@@ -436,8 +453,10 @@ def sharp_unlimited(
                     nxt = next((j for j in my_blocks if j > i and want(j)), None)
                     future = pool.submit(load_block, nxt) if nxt is not None else None
                     prefetched_for = nxt
+                    # the feed's worker stages that block's first group after this block's last
+                    pipe.upcoming = plan_of(future) if future is not None else None
                     frs = _fold_pass(Xb, cfg, R_all, logf, dev, mesh, group=group, wire_dtype=wire_dtype,
-                                     feed=feed)
+                                     feed=feed, pipeline=pipe)
                     folds_by_block[i] = [{k: fr[k] for k in _FOLD_DIAGNOSTICS} for fr in frs]
                     pending.append((i, frs))
                     del Xb, frs

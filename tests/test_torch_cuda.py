@@ -1345,6 +1345,56 @@ def test_dense_feed_on_card_pins_and_keeps_the_answer(dev, monkeypatch):
         np.testing.assert_array_equal(getattr(a, key), getattr(b, key), err_msg=key)
 
 
+def test_sparse_feed_on_card_stages_across_blocks(dev, monkeypatch):
+    """sharp_unlimited over four scipy CSR blocks of two folds each, a fold
+    a group, on the card: the wire is copied from page-locked sets only
+    (the tracer's pinned wire bytes are all its wire bytes) and on the
+    feed's own stream; every block's first group but the first is staged
+    during the previous block's last; the labels and fold summaries are
+    the CPU call's."""
+    import os
+    import sys
+
+    import scipy.sparse as sp
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from synth import make_tpm_like
+
+    import sharp_tpu_torch
+    from sharp_tpu_torch.parallel import sharded
+    from sharp_tpu_torch.utils import timers
+
+    n, genes, K, p = 2000, 400, 4, 32
+    X, _ = make_tpm_like(n_cells=n, n_genes=genes, n_types=5, seed=21)
+    X[X < np.quantile(X, 0.7)] = 0.0
+    blocks = [sp.csr_matrix(X[b : b + 500]) for b in range(0, n, 500)]
+    rng = np.random.default_rng(3)
+    R = (rng.random((genes, K * p)) < 0.05).astype(np.float32) * rng.choice([-1.0, 1.0], (genes, K * p))
+    kw = dict(rM=R, group=1, rN_seed=4, ensize_K=K, reduced_ndim=p, partition_ncells=250)
+    streams, inner = [], sharded._on
+
+    def watched(d, stream):
+        streams.append(stream)
+        return inner(d, stream)
+
+    monkeypatch.setattr(sharded, "_on", watched)
+    timers.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        card = sharp_tpu_torch.sharp_unlimited(blocks, device=dev, **kw)
+        torch.cuda.synchronize()
+    sums = timers.snapshot()["sums"]
+    timers.reset()
+    copy_streams = list(streams)
+    cpu = sharp_tpu_torch.sharp_unlimited(blocks, device="cpu", **kw)
+    assert sums["feed.wire_pinned_bytes"] == sums["feed.wire_bytes"] > 0
+    assert sums["feed.block_first_ahead"] == len(blocks) - 1
+    assert len(copy_streams) == 2 * len(blocks)
+    assert all(s is not None and s != torch.cuda.default_stream(s.device) for s in copy_streams)
+    for key in ("pred_clusters", "block_labels", "folds", "fold_labels", "fold_counts", "per_member_k"):
+        np.testing.assert_array_equal(getattr(card, key), getattr(cpu, key), err_msg=key)
+
+
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
 

@@ -199,6 +199,20 @@ def test_blockstore_mixed_naming_rejected(tmp_path):
 # --- the wire and the densify -------------------------------------------------
 
 
+def test_sparse_block_from_scipy_shares_what_it_need_not_convert():
+    """A canonical matrix's int32 ids and float32 values go into the block
+    uncopied (the prefetch thread copies nothing); float64 values are
+    converted. Both blocks densify to the matrix."""
+    X = _random_sparse(60, 40, 0.2, 3).astype(np.float32)
+    sb = sparse.SparseBlock.from_scipy(X)
+    assert np.shares_memory(sb.indices, X.indices) and np.shares_memory(sb.data, X.data)
+    X64 = X.astype(np.float64)
+    sb64 = sparse.SparseBlock.from_scipy(X64)
+    assert sb64.data.dtype == np.float32 and not np.shares_memory(sb64.data, X64.data)
+    for block in (sb, sb64):
+        np.testing.assert_array_equal(block.densify(), X.toarray())
+
+
 def test_sparse_block_roundtrip(tmp_path, blocked_data):
     _, _, blocks = blocked_data
     b = blocks[1]

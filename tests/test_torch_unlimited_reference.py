@@ -9,11 +9,20 @@ fold summaries within 1e-5; the same for any fold group and any batch of
 block fuses. Also: the comparison fails for the blocks in a shifted order;
 `rM` drawn as the call would draw it gives its answer bit for bit; a
 traced call counts the sparse feed's nonzeros and wire bytes, one block
-pass and one wait a fold group.
+pass and one wait a fold group; the feed staging each block's first group
+during the previous block's last gives each block's own answer bit for bit,
+skips a resumed block, makes its wire sets once, and leaves no worker
+behind an error.
 """
+
+import glob
+import os
+import sys
+import threading
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import sharp_tpu_torch
@@ -24,6 +33,7 @@ from perfbench.reference import unlimited as ref_unlimited
 from perfbench.reference.compare import label_gap, rel_err
 from sharp_tpu_torch.io import sparse
 from sharp_tpu_torch.ops.rp import ensemble_rp_matrix
+from sharp_tpu_torch.parallel import sharded, streaming
 from sharp_tpu_torch.utils import timers
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -68,7 +78,10 @@ def test_unlimited_matches_plain_reference(inputs, answer, reference, group, fus
     blocks, R = inputs
     got = answer if (group, fuse_batch) == (None, 8) else sharp_tpu_torch.sharp_unlimited(
         blocks, rM=R, group=group, fuse_batch=fuse_batch, **KNOBS)
-    ref = reference
+    _hold_to_reference(got, reference)
+
+
+def _hold_to_reference(got, ref):
     np.testing.assert_array_equal(got.pred_clusters, ref.labels)
     np.testing.assert_array_equal(got.folds, ref.folds)
     np.testing.assert_array_equal(got.per_member_k, ref.k_per)
@@ -130,3 +143,104 @@ def test_traced_call_counts_the_sparse_feed(inputs):
     # untraced, nothing is counted
     sharp_tpu_torch.sharp_unlimited(blocks[:2], rM=R, **KNOBS)
     assert not any(k.startswith("feed.") for k in timers.snapshot()["sums"])
+
+
+# what a call returns of its blocks' fold passes and fuses
+FIELDS = ("pred_clusters", "block_labels", "folds", "fold_labels", "fold_cent_sum", "fold_counts", "per_member_k",
+          "per_member_maxsil")
+
+
+def _traced(fn):
+    """fn() under a profiler -> (its result, the tracer's sums)."""
+    timers.reset()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            out = fn()
+        return out, timers.snapshot()["sums"]
+    finally:
+        timers.reset()
+
+
+@pytest.mark.parametrize("group", [1, 2, 3])
+def test_feed_across_blocks_equals_each_block_alone(inputs, reference, monkeypatch, tmp_path, group):
+    """The call's one sparse feed stages each block's first group while the
+    previous block's last group runs (groups of 1, 2 and 3 folds split the
+    blocks' 3, 3 and 4 folds unevenly), under a short thread switch
+    interval: the summaries and labels are byte for byte those of each
+    block's fold pass fed alone, and held to the plain reference. With the
+    middle block resumed from its manifest, the worker skips it: the last
+    block's first group is staged during the first block's last, and the
+    labels are the whole call's."""
+    blocks, R = inputs
+    call = lambda **kw: sharp_tpu_torch.sharp_unlimited(blocks, rM=R, group=group, **kw, **KNOBS)  # noqa: E731
+    real_pass = streaming._fold_pass
+
+    def alone(*a, pipeline=None, **k):
+        return real_pass(*a, **k)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        across, sums = _traced(lambda: call(manifest_dir=str(tmp_path)))
+        for b in (0, 2):
+            [path] = glob.glob(str(tmp_path / f"block_{b:05d}_*.npz"))
+            os.remove(path)
+        resumed, resumed_sums = _traced(lambda: call(manifest_dir=str(tmp_path)))
+        with monkeypatch.context() as m:
+            m.setattr(streaming, "_fold_pass", alone)
+            each, each_sums = _traced(call)
+    finally:
+        sys.setswitchinterval(old)
+    for f in FIELDS:
+        assert getattr(across, f).tobytes() == getattr(each, f).tobytes(), f
+    _hold_to_reference(across, reference)
+    assert sums["feed.block_first_ahead"] == len(SIZES) - 1
+    assert "feed.block_first_ahead" not in each_sums
+    assert resumed_sums["feed.block_first_ahead"] == 1 and resumed.folds is None
+    np.testing.assert_array_equal(resumed.pred_clusters, across.pred_clusters)
+    np.testing.assert_array_equal(resumed.block_labels, across.block_labels)
+
+
+def test_feed_makes_its_wire_sets_once(inputs, monkeypatch):
+    """Two traced calls: each stages every block's first group but the
+    call's first ahead; the first makes the two wire sets (each holds a
+    block's whole group, so the short last groups fit), the second reuses
+    them and makes none."""
+    blocks, R = inputs
+    monkeypatch.setattr(sharded, "_FREE_WIRE", {})
+    counts = []
+    for _ in range(2):
+        _, sums = _traced(lambda: sharp_tpu_torch.sharp_unlimited(blocks, rM=R, group=2, **KNOBS))
+        counts.append((sums["feed.block_first_ahead"], sums.get("feed.wire_sets_made", 0)))
+    assert counts == [(len(SIZES) - 1, 2), (len(SIZES) - 1, 0)]
+
+
+class _Unreadable(sp.csr_matrix):
+    def tocsr(self, copy=False):
+        raise OSError("block unreadable")
+
+
+@pytest.mark.parametrize("fault", ["load", "fold_program"])
+def test_feed_errors_raise_and_leave_no_worker(inputs, monkeypatch, fault):
+    """A block whose load raises on the prefetch thread, and a fold program
+    that raises in the first block's last group (the next block's first
+    group staged meanwhile): the call raises that error, and no thread of
+    the sparse feed is left."""
+    blocks, R = inputs
+    if fault == "load":
+        blocks = [blocks[0], _Unreadable(blocks[1]), blocks[2]]
+        err = OSError
+    else:
+        calls, real = [], sharded.fold_program
+
+        def failing(*a, **k):
+            calls.append(1)
+            if len(calls) == 2:
+                raise RuntimeError("fold program failed")
+            return real(*a, **k)
+
+        monkeypatch.setattr(sharded, "fold_program", failing)
+        err = RuntimeError
+    with pytest.raises(err):
+        sharp_tpu_torch.sharp_unlimited(blocks, rM=R, group=2, **KNOBS)
+    assert not [t for t in threading.enumerate() if t.name.startswith("sparse-feed")]
