@@ -21,7 +21,7 @@ from sharp_tpu_torch.core.wmetac import wmetac
 from sharp_tpu_torch.ops.rp import ensemble_rp_matrix, rp_project, ternary_rp_matrix
 from sharp_tpu_torch.ops.select import opt_hclust
 from sharp_tpu_torch.utils.prng import fixed_generator, testlog_generator
-from sharp_tpu_torch.utils.timers import StageTimer, host_read, log
+from sharp_tpu_torch.utils.timers import StageTimer, add, host_read, log, span
 
 
 class TestlogProbe(NamedTuple):
@@ -44,6 +44,9 @@ def preprocess(
     Mirrors R/SHARP.R:82-117: duplicate gene/cell-name removal, `prep`
     (negative clamp + all-zero-gene drop), and CPM normalization when
     exp.type is given and is neither CPM nor TPM. X is cells x genes.
+    While tracing, the spans `sharp.preprocess.{prep,normalize}` and the
+    sums `preprocess.genes_dropped` and `preprocess.host_bytes` (the bytes
+    the host's passes over the matrix read and write).
     """
     if cell_names is not None:
         _, idx = np.unique(np.asarray(cell_names), return_index=True)
@@ -54,13 +57,24 @@ def preprocess(
         if len(idx) < X.shape[1]:
             X = X[:, np.sort(idx)]
     if cfg.prep:
-        X = np.maximum(X, 0)
-        nz = X.sum(axis=0) > 0
-        if not nz.all():
-            X = X[:, nz]
+        with span("preprocess.prep"):
+            full = X.nbytes
+            X = np.maximum(X, 0)
+            nz = X.sum(axis=0) > 0
+            dropped = int(nz.size - nz.sum())
+            if dropped:
+                X = X[:, nz]
+            # the clamp reads and writes the matrix, the gene sums read it,
+            # and a drop reads it and writes the genes kept
+            add("preprocess.host_bytes", 3 * full + (full + X.nbytes if dropped else 0))
+            add("preprocess.genes_dropped", dropped)
     if cfg.exp_type is not None and cfg.exp_type.upper() not in ("CPM", "TPM"):
-        per_cell = X.sum(axis=1, keepdims=True)
-        X = X / np.maximum(per_cell, 1e-12) * 1e6
+        with span("preprocess.normalize"):
+            per_cell = X.sum(axis=1, keepdims=True)
+            X = X / np.maximum(per_cell, 1e-12) * 1e6
+            # the cell sums read the matrix; the divide and the scale each
+            # read and write it
+            add("preprocess.host_bytes", 5 * X.nbytes)
     return np.ascontiguousarray(X, dtype=np.float32)
 
 

@@ -31,13 +31,14 @@ them.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from sharp_tpu_torch.ops.distance import BIG
-from sharp_tpu_torch.utils.timers import add, add_device, host_read, sub, tracing
+from sharp_tpu_torch.utils.timers import add, add_device, host_read, kernel, sub, tracing
 
 
 class LinkageResult(NamedTuple):
@@ -630,13 +631,13 @@ def rnn_ladder(
                         s.round(s.active(nxt), P)
                 launched += read_every
             if traced:
-                merged = _count_level(s, lvl, nxt, launched, fused, merged)
+                merged = _count_level(s, lvl, nxt, P, launched, fused, merged)
             s.compact(nxt)
         lvl = nxt
     return s
 
 
-def _count_level(s: RnnLadder, m: int, nxt: int, launched: int, fused: bool, merged):
+def _count_level(s: RnnLadder, m: int, nxt: int, P: int, launched: int, fused: bool, merged):
     """The tracer's sums of a finished level of m clusters, before its
     compaction, with no host read: the lane-rounds launched and those in
     which a lane was active (`rounds`), and with the round kernel, the
@@ -652,14 +653,17 @@ def _count_level(s: RnnLadder, m: int, nxt: int, launched: int, fused: bool, mer
     change: the dying row's to the >= nxt other clusters alive before the
     round, and the dying column's in the >= (nxt + 1) / 2 rows alive after
     it. Left out: the rows read again, the survivors' changed entries and
-    the changed row cache. `merged`: the merges before the level; returns
-    those after it."""
+    the changed row cache. Also the pairs the rounds merged and the pair
+    slots they had, P an active lane-round. `merged`: the merges before the
+    level; returns those after it."""
     L = s.D.shape[0]
     active = s.rounds.sum()
     total = s.cnt.sum()
     pairs = total - merged
     add("ladder.launched_lane_rounds", L * launched)
     add_device("ladder.live_lane_rounds", active)
+    add_device("ladder.pairs", pairs)
+    add_device("ladder.pair_slots", P * active)
     if fused:
         es = s.D.element_size()
         add("rnn_round.bytes", L * launched * (m + 16))
@@ -701,7 +705,9 @@ def ward_linkage_rnn(
     (the TPU kept its fused round opt-in for a cost of its own compiler,
     which does not apply here). The output is identical either way.
     `compact_cap` is accepted for signature parity: it sizes the JAX
-    package's round-based tail, which the serial tail replaces.
+    package's round-based tail, which the serial tail replaces. While
+    tracing on a card, `timers.kernel("ladder")` times the rounds and the
+    tail together.
     """
     from sharp_tpu_torch.ops.linkage_cuda import rnn_tail_kernel
 
@@ -709,9 +715,10 @@ def ward_linkage_rnn(
         raise ValueError(f"unknown tail {tail!r} (one of {TAILS})")
     drain = rnn_tail if tail == "xla" else rnn_tail_kernel
     squeeze = D.dim() == 2
-    ladder = rnn_ladder(D[None] if squeeze else D, pair_cap, store_dtype, compact_n, round_impl)
-    with sub("tail"):
-        tail_out = drain(*ladder.tail_inputs())
+    with kernel("ladder") if D.is_cuda else contextlib.nullcontext():
+        ladder = rnn_ladder(D[None] if squeeze else D, pair_cap, store_dtype, compact_n, round_impl)
+        with sub("tail"):
+            tail_out = drain(*ladder.tail_inputs())
     link = ladder.finish(*tail_out)
     return LinkageResult(link.merges[0], link.heights[0]) if squeeze else link
 

@@ -95,7 +95,7 @@ def test_port_source_imports_nothing_of_the_jax_package():
     mpl = re.compile(r"^\s*(import|from) matplotlib\b", re.M)
     paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py")]
     paths += [os.path.join(REPO, "scripts", f)
-              for f in ("multihost_26block_torch.py", "bench_round.py", "repro_log2_load.py")]
+              for f in ("multihost_26block_torch.py", "bench_round.py", "repro_log2_load.py", "pbmc_routes.py")]
     for root, _, files in os.walk(os.path.join(REPO, "sharp_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     bad = [p for p in paths if pat.search(open(p).read())]
